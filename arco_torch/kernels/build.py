@@ -30,11 +30,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _LL, _F, _SZ = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                         ctypes.c_float, ctypes.c_size_t)
 _SIGNATURES = {
-    "arco_infonce_fwd": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _LL, _F, _P]),
-    "arco_infonce_bwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _F,
-                              _P]),
-    "arco_infonce_fwd_smem": (_SZ, [_I, _I]),
-    "arco_infonce_bwd_smem": (_SZ, [_I, _I]),
+    "arco_infonce_fwd": (_I, [_P] * 6 + [_I] * 4 + [_LL, _F, _P]),
+    "arco_infonce_bwd": (_I, [_P] * 6 + [_I] * 4 + [_LL, _P]),
+    "arco_infonce_smem": (_SZ, [_I, _I]),
+    "arco_infonce_group": (_I, []),
+    "arco_infonce_splits": (_I, []),
     "arco_pool_sims": (_I, [_P, _P, _P, _P, _I, _I, _LL, _P]),
     "arco_pool_sims_chunk": (_I, []),
     "arco_pool_sims_max_b": (_I, []),

@@ -8,15 +8,19 @@ the sampled negatives neg_idx [K, Q, N]. Per class:
     denom[q] = sum_n exp(s_qn / T - 1 / T),  s_qn = <a_n[q], bank[idx_qn]>
     loss     = mean_q log(exp(pos_q / T - 1 / T) + denom[q]) - (pos_q/T - 1/T)
 
-``infonce_fwd`` (denominator) and ``infonce_bwd`` (softmax-weighted key sum)
-launch the kernels of csrc/infonce.cu for CUDA tensors and compute their
-plain PyTorch versions, ``infonce_denom_plain`` / ``infonce_grad_plain``,
-for CPU tensors. ``FusedInfoNCE`` pairs them as an autograd Function; the
-normalization chain and the positive logit stay in PyTorch around it, and
-the bank receives no gradient (it holds detached teacher keys).
+``infonce_fwd`` (the denominator and e_qn = exp(s_qn / T - 1 / T)) and
+``infonce_bwd`` (the softmax-weighted key sum, from e) launch the kernels of
+csrc/infonce.cu for CUDA tensors and compute their plain PyTorch versions,
+``infonce_denom_plain`` / ``infonce_grad_plain``, for CPU tensors.
+``FusedInfoNCE`` pairs them as an autograd Function that saves e for the
+backward; the normalization chain and the positive logit stay in PyTorch
+around it, and the bank receives no gradient (it holds detached teacher
+keys).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -32,74 +36,97 @@ def _gather_rows(bank, neg_idx):
 
 
 def infonce_denom_plain(a_n, bank, neg_idx, inv_temp: float):
+    """(denom [K, Q], e [K, Q, N]), both f32."""
     rows = _gather_rows(bank, neg_idx)
     s = torch.einsum("kqc,kqnc->kqn", a_n.float(), rows)
-    return torch.exp(s * inv_temp - inv_temp).sum(-1)     # [K, Q]
+    e = torch.exp(s * inv_temp - inv_temp)
+    return e.sum(-1), e
 
 
-def infonce_grad_plain(a_n, bank, neg_idx, invtot, inv_temp: float):
-    rows = _gather_rows(bank, neg_idx)
-    s = torch.einsum("kqc,kqnc->kqn", a_n.float(), rows)
-    w = torch.exp(s * inv_temp - inv_temp) * invtot[..., None]
-    return torch.einsum("kqn,kqnc->kqc", w, rows)         # [K, Q, C]
+def infonce_grad_plain(e, bank, neg_idx, invtot):
+    w = e * invtot[..., None]
+    return torch.einsum("kqn,kqnc->kqc", w, _gather_rows(bank, neg_idx))
 
 
-def _check(a_n, bank, neg_idx, extra=()):
-    if a_n.device.type != "cuda":
+def _check(*named):
+    """Each (name, tensor, dtype) is a contiguous, 16-byte aligned tensor of
+    that dtype on the first one's CUDA device."""
+    dev = named[0][1].device
+    if dev.type != "cuda":
         raise RuntimeError(f"infonce kernels take CPU or CUDA tensors, got "
-                           f"{a_n.device}")
-    k, q, c = a_n.shape
-    for name, t, dtype in (("a_n", a_n, torch.bfloat16),
-                           ("bank", bank, torch.bfloat16),
-                           ("neg_idx", neg_idx, torch.int32), *extra):
-        if t.device != a_n.device or t.dtype != dtype \
+                           f"{dev}")
+    for name, t, dtype in named:
+        if t.device != dev or t.dtype != dtype \
                 or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
-                             f"{dtype} tensor on {a_n.device}")
+                             f"{dtype} tensor on {dev}")
+
+
+def _check_bank(bank, neg_idx, k, q, c):
     if bank.ndim != 3 or bank.shape[0] != k or bank.shape[2] != c \
-            or neg_idx.shape[:2] != (k, q) or c % 8:
-        raise ValueError(f"shapes a_n {tuple(a_n.shape)}, bank "
-                         f"{tuple(bank.shape)}, neg_idx "
-                         f"{tuple(neg_idx.shape)}; C must be a multiple of 8")
+            or neg_idx.ndim != 3 or neg_idx.shape[:2] != (k, q):
+        raise ValueError(f"shapes bank {tuple(bank.shape)}, neg_idx "
+                         f"{tuple(neg_idx.shape)} for K={k}, Q={q}, C={c}")
+
+
+@functools.cache
+def _splits(n, c):
+    """The kernels' chunks of the samples, each with its own partials, after
+    checking that they take N samples of C channels."""
+    lib = build.load_library()
+    if not lib.arco_infonce_smem(n, c):
+        raise ValueError(f"the infonce kernels do not take N={n}, C={c}")
+    return lib.arco_infonce_splits()
 
 
 def infonce_fwd(a_n, bank, neg_idx, inv_temp: float):
-    """denom [K, Q] f32. neg_idx entries must lie in [0, cap)."""
+    """(denom [K, Q], e [K, Q, N]) f32, e = exp(s / T - 1 / T) of each
+    sampled similarity. neg_idx entries must lie in [0, cap). One call is
+    one launch in LAUNCHES, though it runs two grids (the kernel and the
+    fixed-order sum of its partial denominators)."""
     if a_n.device.type == "cpu":
         return infonce_denom_plain(a_n, bank, neg_idx, inv_temp)
-    _check(a_n, bank, neg_idx)
-    lib = build.load_library()
+    _check(("a_n", a_n, torch.bfloat16), ("bank", bank, torch.bfloat16),
+           ("neg_idx", neg_idx, torch.int32))
     k, q, c = a_n.shape
+    _check_bank(bank, neg_idx, k, q, c)
     n = neg_idx.shape[2]
-    if lib.arco_infonce_fwd_smem(n, c) > 48 * 1024:
-        raise ValueError(f"C={c} needs more shared memory than one launch has")
-    denom = torch.empty((k, q), dtype=torch.float32, device=a_n.device)
-    build.check(lib.arco_infonce_fwd(
-        a_n.data_ptr(), bank.data_ptr(), neg_idx.data_ptr(),
-        denom.data_ptr(), k, q, n, c, bank.shape[1], float(inv_temp),
-        build.stream_ptr(a_n.device)), "infonce_fwd")
+    s = _splits(n, c)
+    f32 = dict(dtype=torch.float32, device=a_n.device)
+    denom = torch.empty((k, q), **f32)
+    e = torch.empty((k, q, n), **f32)
+    dpart = torch.empty((k, s, q), **f32)
+    build.check(build.load_library().arco_infonce_fwd(
+        a_n.data_ptr(), bank.data_ptr(), neg_idx.data_ptr(), e.data_ptr(),
+        dpart.data_ptr(), denom.data_ptr(), k, q, n, c, bank.shape[1],
+        float(inv_temp), build.stream_ptr(a_n.device)), "infonce_fwd")
     LAUNCHES["infonce_fwd"] += 1
-    return denom
+    return denom, e
 
 
-def infonce_bwd(a_n, bank, neg_idx, invtot, inv_temp: float):
-    """ga [K, Q, C] f32 = sum_n exp(s/T - 1/T) * invtot * bank[idx]."""
-    if a_n.device.type == "cpu":
-        return infonce_grad_plain(a_n, bank, neg_idx, invtot, inv_temp)
-    _check(a_n, bank, neg_idx, (("invtot", invtot, torch.float32),))
-    lib = build.load_library()
-    k, q, c = a_n.shape
-    n = neg_idx.shape[2]
-    if invtot.shape != (k, q):
-        raise ValueError(f"invtot {tuple(invtot.shape)} != {(k, q)}")
-    if lib.arco_infonce_bwd_smem(n, c) > 48 * 1024:
-        raise ValueError(f"N={n}, C={c} need more shared memory than one "
-                         "launch has")
-    ga = torch.empty((k, q, c), dtype=torch.float32, device=a_n.device)
-    build.check(lib.arco_infonce_bwd(
-        a_n.data_ptr(), bank.data_ptr(), neg_idx.data_ptr(),
-        invtot.data_ptr(), ga.data_ptr(), k, q, n, c, bank.shape[1],
-        float(inv_temp), build.stream_ptr(a_n.device)), "infonce_bwd")
+def infonce_bwd(e, bank, neg_idx, invtot):
+    """ga [K, Q, C] f32 = invtot * sum_n e * bank[idx], e from infonce_fwd.
+    One call is one launch in LAUNCHES, though it runs two grids (the
+    kernel and the fixed-order sum of its per-chunk [K, Q, C] partials)."""
+    if e.device.type == "cpu":
+        return infonce_grad_plain(e, bank, neg_idx, invtot)
+    _check(("e", e, torch.float32), ("bank", bank, torch.bfloat16),
+           ("neg_idx", neg_idx, torch.int32),
+           ("invtot", invtot, torch.float32))
+    k, q, n = e.shape
+    c = bank.shape[-1]
+    _check_bank(bank, neg_idx, k, q, c)
+    if neg_idx.shape != e.shape or invtot.shape != (k, q):
+        raise ValueError(f"neg_idx {tuple(neg_idx.shape)} and invtot "
+                         f"{tuple(invtot.shape)} for e {tuple(e.shape)}")
+    s = _splits(n, c)
+    f32 = dict(dtype=torch.float32, device=e.device)
+    ga = torch.empty((k, q, c), **f32)
+    gpart = torch.empty((k, s, q, c), **f32)
+    build.check(build.load_library().arco_infonce_bwd(
+        e.data_ptr(), bank.data_ptr(), neg_idx.data_ptr(), invtot.data_ptr(),
+        gpart.data_ptr(), ga.data_ptr(), k, q, n, c, bank.shape[1],
+        build.stream_ptr(e.device)), "infonce_bwd")
     LAUNCHES["infonce_bwd"] += 1
     return ga
 
@@ -115,21 +142,21 @@ class FusedInfoNCE(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, a_n, p_n, bank, neg_idx, inv_temp: float):
-        denom = infonce_fwd(a_n, bank, neg_idx, inv_temp)
+        denom, e = infonce_fwd(a_n, bank, neg_idx, inv_temp)
         pos_logit = (a_n.float() * p_n.float()[:, None, :]).sum(-1) \
             * inv_temp
         pos_exp = torch.exp(pos_logit - inv_temp)
         loss = (torch.log(pos_exp + denom) + inv_temp - pos_logit).mean(-1)
-        ctx.save_for_backward(a_n, p_n, bank, neg_idx, denom, pos_exp)
+        ctx.save_for_backward(a_n, p_n, bank, neg_idx, e, denom, pos_exp)
         ctx.inv_temp = inv_temp
         return loss
 
     @staticmethod
     def backward(ctx, g):
-        a_n, p_n, bank, neg_idx, denom, pos_exp = ctx.saved_tensors
+        a_n, p_n, bank, neg_idx, e, denom, pos_exp = ctx.saved_tensors
         it = ctx.inv_temp
         invtot = 1.0 / (pos_exp + denom)                  # [K, Q]
-        ga = infonce_bwd(a_n, bank, neg_idx, invtot, it)
+        ga = infonce_bwd(e, bank, neg_idx, invtot)
         sigma_m1 = (pos_exp * invtot - 1.0)[..., None]    # [K, Q, 1]
         scale = (g.float() * it / a_n.shape[1])[:, None, None]
         grad_a = scale * (ga + sigma_m1 * p_n.float()[:, None, :])

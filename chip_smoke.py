@@ -9,19 +9,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
 2. build the CUDA kernels from ``arco_torch/kernels/csrc`` (nvcc, sm_90a);
 3. hold each kernel against its plain PyTorch version at the main path's
    shapes (bf16 inputs, f32 accumulation) and time kernel, plain version,
-   and for pool_sims the library matmul;
+   and for pool_sims the library matmul; the InfoNCE pair at three draws of
+   its negatives over full banks: uniform, and the sampler's 'smc' (the
+   main path's) and 'asmc' draws, each launch pair bit-identical to the
+   next;
 4. hold one small step on the card (bf16 autocast, kernels) against the
    same step on the CPU (f32, plain versions) from the same state, batch
    and draws;
 5. drive the main path: ``init_arco_state`` + 3 ``make_arco_step`` steps of
    the stage-2 ARCO trainer at full width (U-Net 16..256, 496-channel reps,
-   256x256 slices, 2 labeled + 2 unlabeled, K=36 pool, 50000/30000 banks,
-   bf16), with every loss finite and every kernel's launch count equal to
-   the number of steps.
+   256x256 slices, 2 labeled + 2 unlabeled, K=36 pool, 50000/30000 banks
+   filled with normalized rows, bf16), with every loss finite and every
+   kernel's launch count equal to the number of steps.
 
 It then prints one JSON line with the kernels' numbers and, last, the
 device line. Without a CUDA GPU, or without the repository beside it, it
 prints no result and exits non-zero.
+
+Each kernel's "ms", "plain_ms" and "library_ms" time one call between two
+CUDA events, the host's work before the launch included. Its "device_ms"
+is the device's time per call alone: calls queued behind a GPU sleep,
+between two CUDA events.
 """
 
 from __future__ import annotations
@@ -47,6 +55,10 @@ NUM_CLASSES, Q, N, C, TEMP = 4, 256, 512, 496, 0.5
 CAPS = (50000, 30000, 30000, 30000)
 HW, B_L, B_U, POOL_K = 256, 2, 2, 36
 STEPS = 3
+# the main path draws its negatives with ArcoConfig.func = "smc"
+MAIN_DRAW = "smc"
+# ~10 ms of GPU sleep: longer than the host takes to queue the timed calls
+SLEEP_CYCLES = 20_000_000
 
 
 def _log(*args):
@@ -54,7 +66,8 @@ def _log(*args):
 
 
 def _time_ms(fn, reps):
-    """Median ms of ``reps`` calls, each between two CUDA events."""
+    """Median ms of ``reps`` calls, each between two CUDA events (the
+    host's work before the launch included)."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -67,6 +80,27 @@ def _time_ms(fn, reps):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _device_ms(fn, reps):
+    """Device ms per call: ``reps`` calls back to back behind a GPU sleep
+    long enough for the host to queue them all, so the time between the
+    two CUDA events is the device's alone; the median of three such runs."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -107,17 +141,30 @@ def phase_build():
             _log("  ptxas:", line.strip())
 
 
-def phase_kernels(device):
-    """Each kernel against its plain version at the main path's shapes."""
+def _neg_draws(gen, device):
+    """neg_idx [K, Q, N] int32 drawn three ways over the full banks: uniform
+    (the draw phase 3 first timed), and Q*N stratified ('smc', the main
+    path's) or antithetic ('asmc') ranks per class, reshaped as
+    losses/contrastive.py does, so that neg_idx[k, q, n] = rank[k, n*Q + q]."""
     import torch
-    from arco_torch.kernels import infonce, pool_sims
-    from arco_torch.losses import contrastive
-    gen = torch.Generator(device=device).manual_seed(0)
-    bf = torch.bfloat16
-    results = []
+    from arco_torch.ops import sampling
+    caps = torch.tensor(CAPS, device=device)
+    out = {"uniform": (torch.rand((NUM_CLASSES, Q, N), generator=gen,
+                                  device=device)
+                       * caps[:, None, None]).to(torch.int32)}
+    for func in ("smc", "asmc"):
+        ranks = sampling.draw_indices(caps, Q * N, func=func, generator=gen,
+                                      device=device)
+        out[func] = ranks.reshape(NUM_CLASSES, N, Q).transpose(1, 2) \
+            .to(torch.int32).contiguous()
+    return out
 
-    # ---- K1 / K2: a full bank (steady state) of normalized rows, anchors,
-    # and negatives drawn uniformly from each class's capacity
+
+def _infonce_inputs(gen, device):
+    """A full bank (steady state) of normalized rows, anchors, prototypes,
+    and negatives drawn three ways from each class's capacity."""
+    import torch
+    bf = torch.bfloat16
     bank = torch.randn((NUM_CLASSES, max(CAPS), C), generator=gen,
                        device=device, dtype=bf)
     for k in range(NUM_CLASSES):
@@ -127,31 +174,55 @@ def phase_kernels(device):
         NUM_CLASSES, Q, C)
     p_n = _l2n_rows(torch.randn((NUM_CLASSES, C), generator=gen,
                                 device=device, dtype=bf))
-    caps = torch.tensor(CAPS, device=device)[:, None, None]
-    neg_idx = (torch.rand((NUM_CLASSES, Q, N), generator=gen,
-                          device=device) * caps).to(torch.int32)
+    return a_n, p_n, bank, _neg_draws(gen, device)
+
+
+def _staged_rows(neg_idx):
+    """Rows the kernels' staging copies: a (k, q, n) draw is copied unless
+    query q - 1 of the same block's group drew the same row at the same
+    n."""
+    import torch
+    from arco_torch.kernels import build
+    group = build.load_library().arco_infonce_group()
+    new = torch.ones_like(neg_idx, dtype=torch.bool)
+    new[:, 1:] = neg_idx[:, 1:] != neg_idx[:, :-1]
+    new[:, ::group] = True
+    return int(new.sum())
+
+
+def _infonce_at(a_n, p_n, bank, neg_idx):
+    """Both InfoNCE kernels at one draw of neg_idx: each against its plain
+    version (rtol 1e-3: the same bf16 products summed in f32 in another
+    order), two launches bit-identical, the autograd Function against
+    autograd through the plain sampled_infonce, and the times."""
+    import torch
+    from arco_torch.kernels import infonce
+    from arco_torch.losses import contrastive
     it = 1.0 / TEMP
     pos = (a_n.float() * p_n.float()[:, None]).sum(-1) * it
-    unique_rows = sum(int(torch.unique(neg_idx[k]).numel())
-                      for k in range(NUM_CLASSES))
-
-    denom = infonce.infonce_fwd(a_n, bank, neg_idx, it)
-    denom_ref = infonce.infonce_denom_plain(a_n, bank, neg_idx, it)
+    denom, e = infonce.infonce_fwd(a_n, bank, neg_idx, it)
+    denom_ref, e_ref = infonce.infonce_denom_plain(a_n, bank, neg_idx, it)
     torch.cuda.synchronize()
-    err = (denom - denom_ref).abs().max().item()
-    # rtol 1e-3: the same bf16 products summed in f32 in another order
+    err = max((denom - denom_ref).abs().max().item(),
+              (e - e_ref).abs().max().item())
     torch.testing.assert_close(denom, denom_ref, rtol=1e-3, atol=0)
+    torch.testing.assert_close(e, e_ref, rtol=1e-3, atol=0)
     invtot = 1.0 / (torch.exp(pos - it) + denom_ref)
-    ga = infonce.infonce_bwd(a_n, bank, neg_idx, invtot, it)
-    ga_ref = infonce.infonce_grad_plain(a_n, bank, neg_idx, invtot, it)
+    ga = infonce.infonce_bwd(e, bank, neg_idx, invtot)
+    ga_ref = infonce.infonce_grad_plain(e_ref, bank, neg_idx, invtot)
     torch.cuda.synchronize()
     err_g = (ga - ga_ref).abs().max().item()
     torch.testing.assert_close(ga, ga_ref, rtol=1e-3,
                                atol=1e-3 * ga_ref.abs().max().item())
+    denom2, e2 = infonce.infonce_fwd(a_n, bank, neg_idx, it)
+    if not (torch.equal(denom, denom2) and torch.equal(e, e2)
+            and torch.equal(ga, infonce.infonce_bwd(e2, bank, neg_idx,
+                                                    invtot))):
+        raise AssertionError("infonce: two launches differ")
+    del denom2, e2
 
-    # the loss and its gradients through the autograd Function against
-    # autograd through the plain sampled_infonce: loss rtol 1e-3; the
-    # gradients come back in the anchors' bf16 (ulp 2^-8), so rtol 1e-2
+    # loss rtol 1e-3; the gradients come back in the anchors' bf16
+    # (ulp 2^-8), so rtol 1e-2
     def loss_and_grads(fn):
         a = a_n.detach().clone().requires_grad_()
         p = p_n.detach().clone().requires_grad_()
@@ -164,36 +235,68 @@ def phase_kernels(device):
     for g, w in zip(got[1:], want[1:]):
         torch.testing.assert_close(g.float(), w.float(), rtol=1e-2,
                                    atol=1e-2 * w.float().abs().max().item())
+    del denom_ref, e_ref, ga_ref, got, want
 
+    # the bounds: each distinct row read once, the small tensors once
+    distinct = sum(int(torch.unique(neg_idx[k]).numel())
+                   for k in range(NUM_CLASSES))
+    rows = {"rows_distinct": distinct, "rows_fetched": _staged_rows(neg_idx)}
     row_bytes = C * 2
-    fwd_bytes = (unique_rows * row_bytes + a_n.numel() * 2
-                 + neg_idx.numel() * 4 + denom.numel() * 4)
-    fwd_ops = 2 * NUM_CLASSES * Q * N * C
-    bwd_bytes = fwd_bytes + invtot.numel() * 4 + ga.numel() * 4 \
-        - denom.numel() * 4
-    for name, fn, plain, n_bytes, n_ops, e in (
+    small = neg_idx.numel() * 4 + e.numel() * 4
+    fwd_bytes = (distinct * row_bytes + a_n.numel() * 2 + small
+                 + denom.numel() * 4)
+    bwd_bytes = (distinct * row_bytes + small + invtot.numel() * 4
+                 + ga.numel() * 4)
+    ops = 2 * NUM_CLASSES * Q * N * C
+    out = {}
+    for name, fn, plain, n_bytes, n_ops, max_err in (
             ("infonce_fwd",
              lambda: infonce.infonce_fwd(a_n, bank, neg_idx, it),
              lambda: infonce.infonce_denom_plain(a_n, bank, neg_idx, it),
-             fwd_bytes, fwd_ops, err),
+             fwd_bytes, ops, err),
             ("infonce_bwd",
-             lambda: infonce.infonce_bwd(a_n, bank, neg_idx, invtot, it),
-             lambda: infonce.infonce_grad_plain(a_n, bank, neg_idx, invtot,
-                                                it),
-             bwd_bytes, 2 * fwd_ops, err_g)):
+             lambda: infonce.infonce_bwd(e, bank, neg_idx, invtot),
+             lambda: infonce.infonce_grad_plain(e, bank, neg_idx, invtot),
+             bwd_bytes, ops, err_g)):
         bound, by = _bound_ms(n_bytes, n_ops)
+        out[name] = {"max_abs_err": max_err, "ms": _time_ms(fn, 50),
+                     "device_ms": _device_ms(fn, 50),
+                     "plain_ms": _time_ms(plain, 5), "bound_ms": bound,
+                     "bound_by": by, **rows}
+        _log(f"  {name}: {out[name]['ms']:.4f} ms (device "
+             f"{out[name]['device_ms']:.4f}), bound {bound:.4f} ms, "
+             f"plain {out[name]['plain_ms']:.3f} ms, max err {max_err:.3g}")
+    return out
+
+
+def phase_kernels(device):
+    """Each kernel against its plain version at the main path's shapes."""
+    import torch
+    from arco_torch.kernels import pool_sims
+    gen = torch.Generator(device=device).manual_seed(0)
+    bf = torch.bfloat16
+    results = []
+
+    # ---- K1 / K2
+    a_n, p_n, bank, draws = _infonce_inputs(gen, device)
+    per_draw = {"infonce_fwd": {}, "infonce_bwd": {}}
+    for func, neg_idx in draws.items():
+        for name, r in _infonce_at(a_n, p_n, bank, neg_idx).items():
+            per_draw[name][func] = r
+        _log(f"infonce at {func} draws: {r['rows_distinct']} distinct rows, "
+             f"{r['rows_fetched']} staged of {neg_idx.numel()} draws")
+    for name, replaces in (("infonce_fwd", "infonce.py:127"),
+                           ("infonce_bwd", "infonce.py:147")):
+        # the top-level numbers are at the main path's draws
+        main = per_draw[name][MAIN_DRAW]
         results.append({
             "name": name, "route": "cuda",
             "source": "arco_torch/kernels/csrc/infonce.cu",
-            "replaces": ("arco_tpu/ops/pallas/infonce.py:127"
-                         if name == "infonce_fwd" else
-                         "arco_tpu/ops/pallas/infonce.py:147"),
-            "max_abs_err": e, "ms": _time_ms(fn, 50),
-            "plain_ms": _time_ms(plain, 5), "bound_ms": bound,
-            "bound_by": by, "library_ms": None})
-    _log(f"infonce: {unique_rows} distinct bank rows gathered; "
-         f"denom max err {err:.3g}, key-sum max err {err_g:.3g}")
-    del bank, denom_ref, ga_ref, got, want
+            "replaces": f"arco_tpu/ops/pallas/{replaces}",
+            **{k: main[k] for k in ("max_abs_err", "ms", "device_ms",
+                                    "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None, "draws": per_draw[name]})
+    del bank, draws
     torch.cuda.empty_cache()
 
     # ---- K3: queries are the student + teacher reps of the 2 unlabeled
@@ -216,22 +319,25 @@ def phase_kernels(device):
         raise AssertionError(f"pool_sims: max err {err_s} > 1e-3 * {scale}")
     bound, by = _bound_ms((2 * B_U + POOL_K) * f * 2 + sims.numel() * 4,
                           2 * 2 * B_U * POOL_K * f)
+
+    def sims_fn():
+        return pool_sims.pool_similarities(queries, pool)
     results.append({
         "name": "pool_sims", "route": "cuda",
         "source": "arco_torch/kernels/csrc/pool_sims.cu",
         "replaces": "arco_tpu/ops/pallas/pool_sims.py:54",
-        "max_abs_err": err_s,
-        "ms": _time_ms(lambda: pool_sims.pool_similarities(queries, pool),
-                       20),
+        "max_abs_err": err_s, "ms": _time_ms(sims_fn, 20),
+        "device_ms": _device_ms(sims_fn, 20),
         "plain_ms": _time_ms(
             lambda: pool_sims.pool_similarities_plain(queries, pool), 3),
         "bound_ms": bound, "bound_by": by,
         "library_ms": _time_ms(lambda: torch.matmul(queries, pool.t()), 20)})
     _log(f"pool_sims: max err {err_s:.3g} of max |sims| {scale:.3g}")
     for r in results:
-        _log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.3f} "
-             f"ms, bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
-             f"library {r['library_ms']})")
+        _log(f"  {r['name']}: {r['ms']:.4f} ms (device "
+             f"{r['device_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
+             f"{r['bound_ms']:.4f} ms by {r['bound_by']}, library "
+             f"{r['library_ms']})")
     del pool, queries
     torch.cuda.empty_cache()
     return results
@@ -347,6 +453,13 @@ def phase_main_path(device):
          f"{tuple(state.random_pool.shape)} {state.random_pool.dtype}, "
          f"bank {tuple(state.memobank.data.shape)}")
     gen = torch.Generator(device=device).manual_seed(0)
+    # full banks of normalized rows, as training holds them after ~200
+    # steps (each step enqueues 256 keys per class)
+    bank = state.memobank
+    for k in range(bank.num_classes):
+        _l2n_rows(bank.data[k].normal_(generator=gen))
+    bank.count = torch.tensor(bank.capacities, dtype=torch.int32,
+                              device=device)
     batches = []
     for _ in range(STEPS):
         image_l, label_l = _synthetic_batch(b_l, hw, gen, device)
@@ -376,7 +489,7 @@ def phase_main_path(device):
     if state.step != STEPS \
             or state.random_pool_ptr != STEPS * b_u % cfg.K:
         raise AssertionError("the step counter or pool pointer is off")
-    if int(state.memobank.count.sum()) <= NUM_CLASSES:
+    if bool((state.memobank.ptr == 1).all()):
         raise AssertionError("no keys reached the memory bank")
     _log(f"launches over {STEPS} steps: {counts}")
     for name, n in counts.items():

@@ -16,6 +16,7 @@ import torch
 
 from arco_torch.kernels import infonce, launch_counts, pool_sims
 from arco_torch.losses import contrastive
+from arco_torch.ops import sampling
 
 torch.set_num_threads(1)
 
@@ -34,33 +35,67 @@ def _normalized(shape, gen, device):
     return torch.nn.functional.normalize(x, dim=-1).to(torch.bfloat16)
 
 
-def _infonce_inputs(device):
+def _infonce_inputs(device, func="uniform", q=Q, n=N):
+    """Normalized anchors, prototypes and bank; neg_idx drawn as the
+    contrastive loss draws it: neg_idx[k, i, j] = rank[k, j * q + i]."""
     gen = torch.Generator(device=device).manual_seed(0)
-    a_n = _normalized((K, Q, C), gen, device)
+    a_n = _normalized((K, q, C), gen, device)
     p_n = _normalized((K, C), gen, device)
     bank = _normalized((K, CAP, C), gen, device)
-    idx = torch.randint(0, CAP, (K, Q, N), generator=gen, device=device,
-                        dtype=torch.int32)
+    ranks = sampling.draw_indices(torch.full((K,), CAP, device=device),
+                                  q * n, func=func, generator=gen,
+                                  device=device)
+    idx = ranks.reshape(K, n, q).transpose(1, 2).to(torch.int32).contiguous()
     return a_n, p_n, bank, idx
 
 
-@pytest.mark.cuda
-def test_infonce_pair_matches_plain(cuda):
-    a_n, _, bank, idx = _infonce_inputs(cuda)
-    invtot = torch.rand(K, Q, device=cuda)
+def _pair_against_plain(a_n, bank, idx):
+    invtot = torch.rand(a_n.shape[:2], device=a_n.device)
     before = launch_counts()
-    denom = infonce.infonce_fwd(a_n, bank, idx, 1 / T)
-    ga = infonce.infonce_bwd(a_n, bank, idx, invtot, 1 / T)
+    denom, e = infonce.infonce_fwd(a_n, bank, idx, 1 / T)
+    ga = infonce.infonce_bwd(e, bank, idx, invtot)
     torch.cuda.synchronize()
     after = launch_counts()
     assert after["infonce_fwd"] == before["infonce_fwd"] + 1
     assert after["infonce_bwd"] == before["infonce_bwd"] + 1
-    torch.testing.assert_close(
-        denom, infonce.infonce_denom_plain(a_n, bank, idx, 1 / T),
-        rtol=1e-3, atol=0)
-    want = infonce.infonce_grad_plain(a_n, bank, idx, invtot, 1 / T)
+    denom_ref, e_ref = infonce.infonce_denom_plain(a_n, bank, idx, 1 / T)
+    torch.testing.assert_close(denom, denom_ref, rtol=1e-3, atol=0)
+    torch.testing.assert_close(e, e_ref, rtol=1e-3, atol=0)
+    want = infonce.infonce_grad_plain(e_ref, bank, idx, invtot)
     torch.testing.assert_close(ga, want, rtol=1e-3,
                                atol=1e-3 * want.abs().max().item())
+    return denom, e, ga, invtot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("func", ["uniform", "smc", "asmc"])
+def test_infonce_pair_matches_plain(cuda, func):
+    """Q = 40 and N = 61: ragged against the 16-query groups and the 4
+    chunks of samples."""
+    a_n, _, bank, idx = _infonce_inputs(cuda, func, q=40, n=61)
+    _pair_against_plain(a_n, bank, idx)
+
+
+@pytest.mark.cuda
+def test_infonce_pair_duplicate_rows(cuda):
+    """Every query of a group draws the same row at each n: one staged copy
+    serves all of them, and a row drawn twice adds twice."""
+    a_n, _, bank, _ = _infonce_inputs(cuda, q=40, n=61)
+    idx = (torch.arange(61, device=cuda) * 7 % 23).to(torch.int32)
+    idx = idx.expand(K, 40, 61).contiguous()
+    _pair_against_plain(a_n, bank, idx)
+
+
+@pytest.mark.cuda
+def test_infonce_pair_is_bit_identical(cuda):
+    """The S partials are summed in a fixed order: two launches agree bit
+    for bit."""
+    a_n, _, bank, idx = _infonce_inputs(cuda, "smc")
+    denom, e, ga, invtot = _pair_against_plain(a_n, bank, idx)
+    denom2, e2 = infonce.infonce_fwd(a_n, bank, idx, 1 / T)
+    ga2 = infonce.infonce_bwd(e2, bank, idx, invtot)
+    assert torch.equal(denom, denom2) and torch.equal(e, e2) \
+        and torch.equal(ga, ga2)
 
 
 @pytest.mark.cuda

@@ -91,6 +91,63 @@ def test_fused_infonce_matches_xla_sampled_infonce():
                     _jax_losses_and_grads(jfn, *args))
 
 
+# Sampler-shaped indices at a Q and N that no tile divides. On the CPU the
+# wrappers run the plain pair, so these cases hold the plain pair against
+# the Pallas pair in interpret mode at the main path's kind of draws; the
+# kernels' own ragged tiles are tested on the card (test_torch_port_cuda.py).
+Q_R, N_R = 20, 30
+
+
+def _sampler_idx(rs, func, cap):
+    """neg_idx [K, Q_R, N_R] as the contrastive loss draws it: Q_R * N_R
+    ranks per class from the sampler's f32 arithmetic
+    (ops/sampling.py), reshaped so that neg_idx[k, q, n] = rank[n*Q_R + q].
+    Stratified ranks make neighbouring queries share rows at each n."""
+    m = Q_R * N_R
+    if func == "uniform":
+        ranks = rs.randint(0, cap, size=(K, m))
+    elif func == "smc":
+        u = rs.rand(K, m).astype(np.float32)
+        pos = (np.arange(m, dtype=np.float32) + u) / np.float32(m)
+        ranks = (pos * np.float32(cap)).astype(np.int32)
+    else:
+        t = rs.rand(K, m // 2).astype(np.float32) * np.float32(2)
+        base = np.float32(2) * np.arange(m // 2, dtype=np.float32)
+        pos = np.concatenate([(base + t) / np.float32(m),
+                              (base + (np.float32(2) - t)) / np.float32(m)],
+                             axis=-1)
+        ranks = (pos * np.float32(cap)).astype(np.int32)
+    ranks = np.clip(ranks, 0, cap - 1).astype(np.int32)
+    return np.ascontiguousarray(
+        ranks.reshape(K, N_R, Q_R).transpose(0, 2, 1))
+
+
+@pytest.mark.parametrize("normalized_bank", [False, True])
+@pytest.mark.parametrize("func", ["smc", "asmc", "uniform"])
+def test_fused_infonce_at_sampler_draws(func, normalized_bank):
+    """The pair at the draws the main path makes ('smc'), 'asmc' and
+    uniform, at a ragged Q and N, against the Pallas kernel pair in
+    interpret mode."""
+    rs = np.random.RandomState(7)
+    anchor = rs.randn(K, Q_R, C).astype(np.float32)
+    proto = rs.randn(K, C).astype(np.float32)
+    bank = rs.randn(K, CAP, C).astype(np.float32)
+    if normalized_bank:
+        bank /= np.linalg.norm(bank, axis=-1, keepdims=True)
+    idx = _sampler_idx(rs, func, CAP)
+    weights = rs.rand(K).astype(np.float32)
+    if func != "uniform":   # neighbouring queries share rows at each n
+        assert (idx[:, 1:] == idx[:, :-1]).mean() > 0.5
+    jfn = lambda a, p, b, i: pallas_sampled_infonce(
+        a, p, b, i, temp=T, tile=32, interpret=True,
+        bank_normalized=normalized_bank)
+    tfn = lambda a, p, b, i: infonce.fused_sampled_infonce(
+        a, p, b, i, T, bank_normalized=normalized_bank)
+    args = (anchor, proto, bank, idx, weights)
+    _assert_triplet(_torch_losses_and_grads(tfn, *args),
+                    _jax_losses_and_grads(jfn, *args))
+
+
 def test_plain_sampled_infonce_matches_xla():
     """The plain autograd version in losses/contrastive.py."""
     args = _infonce_inputs(2, normalized_bank=False)
@@ -109,22 +166,24 @@ def test_duplicate_negatives_count_twice():
     a_n = torch.nn.functional.normalize(a, dim=-1)
     twice = torch.tensor([[[1, 1], [2, 3]]], dtype=torch.int32)
     once = torch.tensor([[[1], [2]]], dtype=torch.int32)
-    d2 = infonce.infonce_fwd(a_n, bank, twice, 1 / T)
-    d1 = infonce.infonce_fwd(a_n, bank, once, 1 / T)
+    d2, _ = infonce.infonce_fwd(a_n, bank, twice, 1 / T)
+    d1, _ = infonce.infonce_fwd(a_n, bank, once, 1 / T)
     torch.testing.assert_close(d2[0, 0], 2 * d1[0, 0])
 
 
 def test_plain_grad_is_the_key_sum_autograd_gives():
-    """infonce_bwd's plain version is d(sum_q invtot_q * denom_q)/d a_n."""
+    """infonce_bwd's plain version, fed the forward's e, is
+    d(sum_q invtot_q * denom_q)/d a_n."""
     anchor, _, bank, idx, _ = _infonce_inputs(4, normalized_bank=True)
     a = torch.from_numpy(anchor)
     bank, idx = torch.from_numpy(bank), torch.from_numpy(idx)
     invtot = torch.from_numpy(
         np.random.RandomState(5).rand(K, Q).astype(np.float32))
     x = a.clone().requires_grad_()
-    (infonce.infonce_denom_plain(x, bank, idx, 1 / T) * invtot).sum() \
+    (infonce.infonce_denom_plain(x, bank, idx, 1 / T)[0] * invtot).sum() \
         .backward()
-    ga = infonce.infonce_bwd(a, bank, idx, invtot, 1 / T)
+    _, e = infonce.infonce_fwd(a, bank, idx, 1 / T)
+    ga = infonce.infonce_bwd(e, bank, idx, invtot)
     torch.testing.assert_close(ga / T, x.grad, rtol=1e-5, atol=1e-6)
 
 
