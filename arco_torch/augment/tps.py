@@ -61,16 +61,31 @@ class TPSGridGen:
             np.asarray(inverse_kernel, np.float32))
         self.target_coordinate_repr = torch.from_numpy(
             np.asarray(repr_mat, np.float32))
+        self.target_control_points = torch.from_numpy(tcp)
         self.target_height = target_height
         self.target_width = target_width
+        self._on_device = {}
+
+    def constants(self, device) -> tuple:
+        """(inverse kernel, target coordinate repr, target control points)
+        on ``device``, copied there once: a host-to-device copy each step
+        would make the host wait for the device."""
+        device = torch.device(device)
+        if device not in self._on_device:
+            self._on_device[device] = tuple(
+                t.to(device) for t in (self.inverse_kernel,
+                                       self.target_coordinate_repr,
+                                       self.target_control_points))
+        return self._on_device[device]
 
     def __call__(self, source_control_points: torch.Tensor) -> torch.Tensor:
         b = source_control_points.shape[0]
         dev = source_control_points.device
+        inverse_kernel, repr_mat, _ = self.constants(dev)
         pad = torch.zeros((b, 3, 2), dtype=torch.float32, device=dev)
         y = torch.cat([source_control_points.float(), pad], dim=1)
-        mapping = self.inverse_kernel.to(dev) @ y
-        coords = self.target_coordinate_repr.to(dev) @ mapping
+        mapping = inverse_kernel @ y
+        coords = repr_mat @ mapping
         return coords.reshape(b, self.target_height, self.target_width, 2)
 
 
@@ -100,8 +115,7 @@ def make_rand_tps_grid(draws: dict, gridgen: TPSGridGen,
     """One random TPS sampling grid [B, H, W, 2] from explicit draws."""
     pert = draws["pert"].float()
     dev = pert.device
-    tcp = torch.from_numpy(default_control_points()).to(dev)
-    scp = tcp[None] + pert
+    scp = gridgen.constants(dev)[2][None] + pert
     if mode == "affine":
         angle = draws["angle"].float().to(dev) / 180.0 * math.pi
         scale = draws["scale"].float().to(dev)

@@ -34,6 +34,7 @@ class MemoBank:
     ptr: torch.Tensor        # [num_classes] int32
     count: torch.Tensor      # [num_classes] int32
     capacities: tuple
+    caps: torch.Tensor = None   # the capacities on the bank's device, int64
 
     @property
     def num_classes(self):
@@ -57,22 +58,26 @@ def create_memobank(num_classes: int, feat: int, capacity: int = 30000,
         raise ValueError(f"unknown memobank init {init!r}")
     ones = torch.ones((num_classes,), dtype=torch.int32, device=device)
     return MemoBank(data=data, ptr=ones.clone(), count=ones.clone(),
-                    capacities=caps)
+                    capacities=caps,
+                    caps=torch.tensor(caps, dtype=torch.int64, device=device))
 
 
 @torch.no_grad()
 def _bank_enqueue_all(bank: MemoBank, keys: torch.Tensor, enable):
     """Enqueue [K, b, feat] keys, b per class, IN PLACE (the bank is the
     step's largest state after the pool); classes with ``enable`` False
-    are left untouched, as JAX drops their writes."""
+    are left untouched, as JAX drops their writes: they write their own
+    rows back, so no shape depends on the data and the host never waits
+    for the device."""
     k, b = keys.shape[0], keys.shape[1]
     dev = bank.data.device
-    caps = torch.as_tensor(bank.capacities, dtype=torch.int64, device=dev)
+    caps = bank.caps
     slot = (bank.ptr.long()[:, None]
             + torch.arange(b, device=dev)[None, :]) % caps[:, None]
     cls = torch.arange(k, device=dev)[:, None].expand(k, b)
-    en = enable[:, None].expand(k, b)
-    bank.data[cls[en], slot[en]] = keys[en].to(bank.data.dtype)
+    bank.data[cls, slot] = torch.where(enable[:, None, None],
+                                       keys.to(bank.data.dtype),
+                                       bank.data[cls, slot])
     caps32 = caps.to(torch.int32)
     bank.ptr = torch.where(enable, (bank.ptr + b) % caps32, bank.ptr)
     bank.count = torch.where(enable, torch.minimum(bank.count + b, caps32),

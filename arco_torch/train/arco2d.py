@@ -2,7 +2,8 @@
 
 One step, in the JAX order:
   feature-extractor EMA -> teacher pseudo-labels -> cutout/cutmix/classmix
-  -> teacher forwards + fusion -> student forwards (l, u) + heads -> losses
+  -> photometric + AdvMorph strong aug -> teacher forwards + fusion
+  -> student forwards (l, u) + heads -> losses
       k1*reco + k3*unsup + sup(CE+Dice) + k2*eqv + k4*loss_q
   -> SGD + poly LR -> teacher EMA -> random-pool enqueue.
 
@@ -14,10 +15,8 @@ the random pool before the in-place enqueue at the end of the step. The
 models and heads run under autocast in the compute dtype (bf16 on the main
 path); losses, percentiles and the optimizer run in f32. The InfoNCE term
 goes through the fused kernel pair and the revisiting loss through the
-pool_sims kernel (arco_torch/kernels).
-
-The photometric and AdvMorph strong augmentations (``use_photometric``,
-``use_adv_morph``) and ``remat`` are not ported yet and raise.
+pool_sims kernel (arco_torch/kernels). The strong augmentations run in f32
+outside autocast. ``remat`` is not ported and raises.
 """
 
 from __future__ import annotations
@@ -31,6 +30,8 @@ import torch
 
 from arco_torch import resolve_device
 from arco_torch.augment.mixing import generate_unsup_data
+from arco_torch.augment.morph import adv_morph_batch
+from arco_torch.augment.photometric import batch_photometric
 from arco_torch.augment.tps import RandTPS
 from arco_torch.config import OptimConfig
 from arco_torch.losses.consistency import (compute_unsupervised_loss,
@@ -71,7 +72,17 @@ class ArcoState:
 
 
 def _f32(x, device):
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
+    """A 0-d f32 tensor on ``device``; a Python number becomes a fill
+    there, not a host-to-device copy (which would make the host wait)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.full((), x, dtype=torch.float32, device=device)
+
+
+def _at(values, index):
+    """values[index] for a 0-d index tensor, without reading it on the
+    host."""
+    return values[index.reshape(1)].reshape(())
 
 
 def masked_percentiles(values, mask, pcts):
@@ -89,8 +100,8 @@ def masked_percentiles(values, mask, pcts):
         rank = _f32(pct, flat.device) / 100.0 * nm1
         lo = torch.floor(rank).to(torch.int64)
         hi = torch.ceil(rank).to(torch.int64)
-        v_lo = sorted_vals[lo.clamp(0, size - 1)]
-        v_hi = sorted_vals[hi.clamp(0, size - 1)]
+        v_lo = _at(sorted_vals, lo.clamp(0, size - 1))
+        v_hi = _at(sorted_vals, hi.clamp(0, size - 1))
         out = v_lo + (v_hi - v_lo) * (rank - lo.float())
         outs.append(torch.where(n > 0, out, 0.0))
     return outs
@@ -117,7 +128,7 @@ def masked_percentiles_histogram(values, mask, pcts, bins: int = 2048,
     for pct in pcts:
         target = _f32(pct, flat.device) / 100.0 * n
         b = torch.searchsorted(cdf, target.reshape(1)).reshape(())
-        out = edges[b.clamp(0, bins - 1)]
+        out = _at(edges, b.clamp(0, bins - 1))
         outs.append(torch.where(n > 0, out, 0.0))
     return outs
 
@@ -353,6 +364,11 @@ def make_arco_step(modules: ArcoModules, cfg, num_classes: int,
     batch: image_l [B, C, H, W], label_l [B, H, W] int, image_u [B, C, H, W].
     draws (all optional; missing ones come from ``state.generator``):
       mix_boxes [B_u, 3] / mix_scores [B_u, K]  (augment/mixing.py)
+      photometric {cj1, cj2}: the draws of the two batch_photometric calls,
+                on the teacher-side copy (images_cj2_u) and the student's
+                strong copy (u_aug_strong)  (augment/photometric.py)
+      morph {m1, m2}: the draws of the two adv_morph_batch calls, on the
+                same two copies               (augment/morph.py)
       tps   {pert, angle, scale, tx, ty, flip}   (augment/tps.py)
       contra {enq, anchor, neg} uniforms         (losses/contrastive.py)
       dropout {pseudo, tl, tu, l, u, tps, dead}: per forward, a list of one
@@ -360,10 +376,6 @@ def make_arco_step(modules: ArcoModules, cfg, num_classes: int,
     """
     device = resolve_device(device)
     optim = optim or OptimConfig()
-    if cfg.use_photometric or cfg.use_adv_morph:
-        raise NotImplementedError(
-            "the photometric and AdvMorph strong augmentations are not "
-            "ported yet: set use_photometric=False and use_adv_morph=False")
     if cfg.remat:
         raise NotImplementedError("remat is not ported")
 
@@ -398,8 +410,27 @@ def make_arco_step(modules: ArcoModules, cfg, num_classes: int,
                 num_classes=num_classes, boxes=draws.get("mix_boxes"),
                 scores=draws.get("mix_scores"), generator=gen)
 
+            # two independently drawn strong copies: images_cj2_u for the
+            # eqv warp, u_aug_strong for the teacher and student forwards
             images_cj2_l = batch["image_l"]
             u_aug_strong = images_cj2_u = u_aug_data
+            if cfg.use_photometric:
+                pd = draws.get("photometric", {})
+                images_cj2_u = batch_photometric(images_cj2_u, pd.get("cj1"),
+                                                 gen)
+                u_aug_strong = batch_photometric(u_aug_strong, pd.get("cj2"),
+                                                 gen)
+            if cfg.use_adv_morph:
+                md = draws.get("morph", {})
+                coarse = cfg.morph_coarse_exp
+                images_cj2_u = adv_morph_batch(images_cj2_u,
+                                               coarse_exp=coarse,
+                                               draws=md.get("m1"),
+                                               generator=gen)
+                u_aug_strong = adv_morph_batch(u_aug_strong,
+                                               coarse_exp=coarse,
+                                               draws=md.get("m2"),
+                                               generator=gen)
             if getattr(cfg, "quantize_augs", False):
                 q8 = lambda x: torch.floor(x.clamp(0.0, 1.0) * 255.0) / 255.0
                 u_aug_strong, images_cj2_u = q8(u_aug_strong), \

@@ -15,12 +15,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
    next;
 4. hold one small step on the card (bf16 autocast, kernels) against the
    same step on the CPU (f32, plain versions) from the same state, batch
-   and draws;
+   and draws: once with the strong augmentation off and once at the
+   defaults (photometric jitter/blur and AdvMorph on, draws that fire
+   them);
 5. drive the main path: ``init_arco_state`` + 3 ``make_arco_step`` steps of
-   the stage-2 ARCO trainer at full width (U-Net 16..256, 496-channel reps,
-   256x256 slices, 2 labeled + 2 unlabeled, K=36 pool, 50000/30000 banks
-   filled with normalized rows, bf16), with every loss finite and every
-   kernel's launch count equal to the number of steps.
+   the stage-2 ARCO trainer at the ``ArcoConfig`` defaults and full width
+   (U-Net 16..256, 496-channel reps, 256x256 slices, 2 labeled + 2
+   unlabeled, K=36 pool, 50000/30000 banks filled with normalized rows,
+   photometric and AdvMorph on, bf16), then 3 with the strong augmentation
+   off, with every loss finite and every kernel's launch count equal to the
+   number of steps; and time the two strong augmentations alone;
+6. drive the CLI: ``arco_torch.cli.train_arco_2d`` trains 4 steps at the
+   defaults on a synthetic 256x256 Synapse-layout tree (npz slices: the
+   card has no h5py) from the GPU slice bank and checkpoints; a rerun to 6
+   steps resumes from full_iter_4; a straight 6-step run, under
+   ``torch.cuda.set_sync_debug_mode("warn")``, counts the host syncs and
+   must end with the same step, LR and generator state; the iter_6
+   weights are evaluated with ``eval.slice2d.evaluate_2d`` on two
+   in-memory volumes.
 
 It then prints one JSON line with the kernels' numbers and, last, the
 device line. Without a CUDA GPU, or without the repository beside it, it
@@ -36,9 +48,11 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -362,12 +376,24 @@ def _synthetic_batch(b, hw, gen, device, num_classes=4):
 
 def _draws(cfg, b_l, b_u, hw, num_classes, gen):
     """Every random draw of one step, made on the CPU (for dropout-free
-    models): the cutmix boxes, the TPS draws and the sampler uniforms."""
+    models): the cutmix boxes, the strong augmentations' draws, the TPS
+    draws and the sampler uniforms. The strong draws fire AdvMorph on both
+    copies and the jitter and the blur on one sample of each."""
     import torch
     from arco_torch.augment.mixing import draw_cutout_boxes
+    from arco_torch.augment.morph import draw_morph
+    from arco_torch.augment.photometric import draw_photometric
     from arco_torch.augment.tps import draw_tps
     q, n, e = cfg.num_queries, cfg.num_negatives, cfg.memobank_enqueue
+    fire = torch.tensor([0.9] + [0.1] * (b_u - 1))
+    photo = {}
+    for name in ("cj1", "cj2"):
+        photo[name] = {**draw_photometric(b_u, gen), "p_jitter": fire,
+                       "p_blur": fire}
+    morph = {name: {**draw_morph(b_u, (hw // 8, hw // 8), gen),
+                    "p": torch.tensor(0.9)} for name in ("m1", "m2")}
     return {"mix_boxes": draw_cutout_boxes(b_u, (hw, hw), generator=gen),
+            "photometric": photo, "morph": morph,
             "tps": draw_tps(b_l + b_u, cfg.tps_sigma, generator=gen),
             "contra": {"enq": torch.rand((num_classes, e), generator=gen),
                        "anchor": torch.rand((num_classes, q), generator=gen),
@@ -384,21 +410,20 @@ def _to(tree, device):
 def phase_reference(device):
     """One small step on ``device`` (bf16 autocast, the kernels) against the
     same step on the CPU in f32 with the plain versions: the same initial
-    weights, pool, batch and draws. Tolerance rtol 5e-2 / atol 2e-2 per
-    loss term: bf16 autocast (8-bit mantissa) against f32 leaves logit
-    errors of ~1e-2, which move the O(0.1) KL of the eqv term by about as
-    much and the O(1) terms by a few percent at most."""
+    weights, pool, batch and draws; with the strong augmentation off, then
+    at the defaults. Tolerance rtol 5e-2 / atol 2e-2 per loss term: bf16
+    autocast (8-bit mantissa) against f32 leaves logit errors of ~1e-2,
+    which move the O(0.1) KL of the eqv term by about as much and the O(1)
+    terms by a few percent at most."""
     import torch
     from arco_torch.config import ArcoConfig
     from arco_torch.models import net_factory
     from arco_torch.train import arco2d
     hw, b, nc = 64, 2, 4
-    cfg = ArcoConfig(K=4, num_queries=32, num_negatives=64,
-                     memobank_size=256, memobank_size_bg=512,
-                     memobank_enqueue=64, topk=2, use_photometric=False,
-                     use_adv_morph=False)
+    small = dict(K=4, num_queries=32, num_negatives=64, memobank_size=256,
+                 memobank_size_bg=512, memobank_enqueue=64, topk=2)
 
-    def build(dev, dtype):
+    def build(cfg, dev, dtype):
         torch.manual_seed(1)
         mods = arco2d.make_arco_modules(
             net_factory("unet", in_chns=1, class_num=nc,
@@ -409,33 +434,74 @@ def phase_reference(device):
                                      max_iterations=100, device=dev)
         return state, step
 
-    ref_state, ref_step = build("cpu", torch.float32)
-    state, step = build(device, torch.bfloat16)
-    state.random_pool.copy_(ref_state.random_pool)
-    gen = torch.Generator().manual_seed(2)
-    image_l, label_l = _synthetic_batch(b, hw, gen, "cpu")
-    image_u, _ = _synthetic_batch(b, hw, gen, "cpu")
-    batch = {"image_l": image_l, "label_l": label_l, "image_u": image_u}
-    draws = _draws(cfg, b, b, hw, nc, gen)
-    want = ref_step(ref_state, batch, draws)
-    got = step(state, _to(batch, device), _to(draws, device))
-    for k in ("loss", "reco_loss", "loss_q", "unsup_loss", "loss_ce",
-              "loss_dice", "loss_eqv"):
-        g, w = float(got[k]), float(want[k])
-        _log(f"  reference {k}: card {g:.6f} cpu {w:.6f}")
-        if not abs(g - w) <= 2e-2 + 5e-2 * abs(w):
-            raise AssertionError(f"{k}: card {g} vs cpu {w}")
+    for strong in (False, True):
+        cfg = ArcoConfig(use_photometric=strong, use_adv_morph=strong,
+                         **small)
+        ref_state, ref_step = build(cfg, "cpu", torch.float32)
+        state, step = build(cfg, device, torch.bfloat16)
+        state.random_pool.copy_(ref_state.random_pool)
+        gen = torch.Generator().manual_seed(2)
+        image_l, label_l = _synthetic_batch(b, hw, gen, "cpu")
+        image_u, _ = _synthetic_batch(b, hw, gen, "cpu")
+        batch = {"image_l": image_l, "label_l": label_l, "image_u": image_u}
+        draws = _draws(cfg, b, b, hw, nc, gen)
+        want = ref_step(ref_state, batch, draws)
+        got = step(state, _to(batch, device), _to(draws, device))
+        label = "defaults" if strong else "strong aug off"
+        for k in ("loss", "reco_loss", "loss_q", "unsup_loss", "loss_ce",
+                  "loss_dice", "loss_eqv"):
+            g, w = float(got[k]), float(want[k])
+            _log(f"  reference ({label}) {k}: card {g:.6f} cpu {w:.6f}")
+            if not abs(g - w) <= 2e-2 + 5e-2 * abs(w):
+                raise AssertionError(f"{label} {k}: card {g} vs cpu {w}")
+
+
+def _check_steps(label, metrics, step_ms, b_l, hw):
+    for i, m in enumerate(metrics):
+        terms = {k: float(v) for k, v in m.items() if v.ndim == 0}
+        _log(f"{label} step {i}: {step_ms[i]:.1f} ms " + json.dumps(terms))
+        bad = [k for k, v in terms.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{label} step {i}: non-finite {bad}")
+        if tuple(m["pred_l_label"].shape) != (b_l, hw, hw):
+            raise AssertionError(f"pred_l_label {m['pred_l_label'].shape}")
+
+
+def _time_strong_aug(device, b_u, hw):
+    """Device ms of the two strong augmentations alone, at the main path's
+    unlabeled batch, with draws that fire them."""
+    import torch
+    from arco_torch.augment.morph import adv_morph_batch, draw_morph
+    from arco_torch.augment.photometric import (batch_photometric,
+                                                draw_photometric)
+    gen = torch.Generator(device=device).manual_seed(3)
+    x = torch.rand((b_u, 1, hw, hw), generator=gen, device=device)
+    photo = {**draw_photometric(b_u, gen, device),
+             "p_jitter": torch.ones(b_u, device=device),
+             "p_blur": torch.ones(b_u, device=device)}
+    morph = {**draw_morph(b_u, (hw // 8, hw // 8), gen, device),
+             "p": torch.ones((), device=device)}
+    out = {"batch_photometric": _device_ms(
+        lambda: batch_photometric(x, photo), 20)}
+    for coarse in (True, False):
+        out[f"adv_morph_batch(coarse_exp={coarse})"] = _device_ms(
+            lambda: adv_morph_batch(x, coarse_exp=coarse, draws=morph), 20)
+    for k, v in out.items():
+        _log(f"  {k}: {v:.4f} device ms at [{b_u}, 1, {hw}, {hw}]")
+    return out
 
 
 def phase_main_path(device):
-    """The stage-2 ARCO trainer at full width, through its entry points."""
+    """The stage-2 ARCO trainer at full width, through its entry points:
+    3 steps at the defaults, then 3 with the strong augmentation off."""
     import torch
     from arco_torch.config import ArcoConfig, DataConfig
     from arco_torch.kernels import launch_counts, reset_launch_counts
     from arco_torch.models import net_factory
     from arco_torch.train import arco2d
     data = DataConfig()
-    cfg = ArcoConfig(use_photometric=False, use_adv_morph=False)
+    cfg = ArcoConfig()
+    cfg_off = ArcoConfig(use_photometric=False, use_adv_morph=False)
     hw = data.patch_size[0]
     b_l, b_u = data.labeled_bs, data.batch_size - data.labeled_bs
     torch.manual_seed(0)
@@ -446,8 +512,11 @@ def phase_main_path(device):
     t0 = time.perf_counter()
     state = arco2d.init_arco_state(mods, cfg, (b_l, 1, hw, hw), seed=0,
                                    device=device)
-    step = arco2d.make_arco_step(mods, cfg, num_classes=data.num_classes,
-                                 max_iterations=30000, device=device)
+    steps = {label: arco2d.make_arco_step(mods, c,
+                                          num_classes=data.num_classes,
+                                          max_iterations=30000,
+                                          device=device)
+             for label, c in (("defaults", cfg), ("strong aug off", cfg_off))}
     torch.cuda.synchronize()
     _log(f"init_arco_state: {time.perf_counter() - t0:.2f} s; pool "
          f"{tuple(state.random_pool.shape)} {state.random_pool.dtype}, "
@@ -461,7 +530,7 @@ def phase_main_path(device):
     bank.count = torch.tensor(bank.capacities, dtype=torch.int32,
                               device=device)
     batches = []
-    for _ in range(STEPS):
+    for _ in range(2 * STEPS):
         image_l, label_l = _synthetic_batch(b_l, hw, gen, device)
         image_u, _ = _synthetic_batch(b_u, hw, gen, device)
         batches.append({"image_l": image_l, "label_l": label_l,
@@ -469,36 +538,164 @@ def phase_main_path(device):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    step_ms, metrics = [], []
-    for batch in batches:
+    step_ms = {label: [] for label in steps}
+    metrics = {label: [] for label in steps}
+    for i, batch in enumerate(batches):
+        label = "defaults" if i < STEPS else "strong aug off"
         t0 = time.perf_counter()
-        m = step(state, batch)
+        m = steps[label](state, batch)
         torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        metrics.append(m)
+        step_ms[label].append((time.perf_counter() - t0) * 1e3)
+        metrics[label].append(m)
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    for i, m in enumerate(metrics):
-        terms = {k: float(v) for k, v in m.items() if v.ndim == 0}
-        _log(f"step {i}: {step_ms[i]:.1f} ms " + json.dumps(terms))
-        bad = [k for k, v in terms.items() if not math.isfinite(v)]
-        if bad:
-            raise AssertionError(f"step {i}: non-finite {bad}")
-        if tuple(m["pred_l_label"].shape) != (b_l, hw, hw):
-            raise AssertionError(f"pred_l_label {m['pred_l_label'].shape}")
-    if state.step != STEPS \
-            or state.random_pool_ptr != STEPS * b_u % cfg.K:
+    for label in steps:
+        _check_steps(label, metrics[label], step_ms[label], b_l, hw)
+    if state.step != 2 * STEPS \
+            or state.random_pool_ptr != 2 * STEPS * b_u % cfg.K:
         raise AssertionError("the step counter or pool pointer is off")
     if bool((state.memobank.ptr == 1).all()):
         raise AssertionError("no keys reached the memory bank")
-    _log(f"launches over {STEPS} steps: {counts}")
+    _log(f"launches over {2 * STEPS} steps: {counts}")
     for name, n in counts.items():
-        if n != STEPS:
-            raise AssertionError(f"{name} launched {n} times in {STEPS} "
+        if n != 2 * STEPS:
+            raise AssertionError(f"{name} launched {n} times in "
+                                 f"{2 * STEPS} steps")
+    for label in steps:
+        _log(f"step ms ({label}) {[round(t, 2) for t in step_ms[label]]}")
+    _log(f"peak memory {peak / 2**30:.2f} GiB")
+    aug_ms = _time_strong_aug(device, b_u, hw)
+    del state, steps, batches, metrics, bank
+    torch.cuda.empty_cache()
+    return counts, {"step_ms": step_ms, "peak_gib": peak / 2**30,
+                    "strong_aug_device_ms": aug_ms}
+
+
+# the CLI phase's tree: 64 slices of 256x256, of which labeled_num 1 of the
+# Synapse budget (config.PATIENTS_TO_SLICES) makes the first 44 labeled
+CLI_SLICES, CLI_VOLUMES, CLI_DEPTH = 64, 2, 8
+
+
+def _cli_sync_sites(run):
+    """Run ``run()`` under sync debug mode "warn"; the host syncs it made,
+    counted by the innermost line of the port that made them."""
+    import collections
+    import traceback
+    import warnings
+    import torch
+    port = str(ROOT / "arco_torch")
+    sites = collections.Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        stack = [f for f in traceback.extract_stack()[:-1]
+                 if not f.filename.endswith("warnings.py")]
+        ours = [f for f in stack
+                if os.path.abspath(f.filename).startswith(port)]
+        f = ours[-1] if ours else stack[-1]
+        sites[f"{os.path.relpath(f.filename, ROOT)}:{f.lineno}"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return dict(sites.most_common())
+
+
+def phase_cli(device, workdir):
+    """The port's CLI at the defaults: train 4 steps and checkpoint,
+    resume to 6, a straight 6-step run under sync debug mode, and an
+    evaluation of the iter_6 weights."""
+    import pickle
+    import numpy as np
+    import torch
+    from arco_torch.cli import train_arco_2d
+    from arco_torch.data.synthetic import make_synapse_like, make_volume
+    from arco_torch.eval.slice2d import evaluate_2d, model_predictor
+    from arco_torch.kernels import launch_counts, reset_launch_counts
+    from arco_torch.models import net_factory
+    from arco_torch.train import checkpoint as ckpt
+    from arco_torch.train.schedule import poly_lr
+    root = make_synapse_like(str(workdir / "Synapse"), n_train=CLI_SLICES,
+                             size=(256, 256))
+    model_dir = str(workdir / "model")
+    snap = lambda exp: Path(model_dir) / f"{exp}_1_labeledfinal" / "unet"
+
+    def cli(exp, iterations, log_every=1, ckpt_every=2):
+        train_arco_2d.main([
+            "--root_path", root, "--exp", exp, "--labeled_num", "1",
+            "--snapshot_dir", model_dir, "--max_iterations", str(iterations),
+            "--log_every", str(log_every), "--ckpt_every", str(ckpt_every)])
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    cli("Synapse/smoke", 4)
+    t1 = time.perf_counter()
+    cli("Synapse/smoke", 6)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = launch_counts()
+    _log(f"cli: 4 steps in {t1 - t0:.1f} s, resumed to 6 in {t2 - t1:.1f} s "
+         f"(set-up included); launches {counts}")
+    for name, n in counts.items():
+        if n != 6:
+            raise AssertionError(f"cli: {name} launched {n} times in 6 "
                                  "steps")
-    _log(f"step ms {[round(t, 2) for t in step_ms]}; peak memory "
-         f"{peak / 2**30:.2f} GiB")
-    return counts
+    run = snap("Synapse/smoke")
+    log = (run / "log.txt").read_text()
+    for want in (f"device data path: 44 + 20 slices staged on {device}",
+                 "resuming full train state from full_iter_4",
+                 "iteration 6 : loss"):
+        if want not in log:
+            raise AssertionError(f"cli: log.txt lacks {want!r}")
+    with open(run / "record.pkl", "rb") as f:
+        history = pickle.load(f)
+    if len(history) != 6 or not all(math.isfinite(v) for v in history):
+        raise AssertionError(f"cli: record.pkl holds {history}")
+    ips = [json.loads(line)["images_per_sec"]
+           for line in (run / "metrics.jsonl").read_text().splitlines()]
+    # the first step of each run includes cuDNN's and the allocator's
+    # warm-up
+    steady = ips[1:4] + ips[5:]
+    _log(f"cli img/s per step {[round(v, 2) for v in ips]}; median after "
+         f"each run's first step {statistics.median(steady):.2f}")
+
+    # a straight 6-step run ends in the resumed run's step, LR and
+    # generator state
+    syncs = _cli_sync_sites(lambda: cli("Synapse/straight", 6, log_every=3,
+                                        ckpt_every=6))
+    _log(f"cli host syncs over a straight 6-step run (log every 3): {syncs}")
+    load = lambda d: torch.load(d / "full_iter_6" / "state.pt",
+                                map_location="cpu", weights_only=True)
+    resumed, straight = load(run), load(snap("Synapse/straight"))
+    lr = resumed["optimizer"]["param_groups"][0]["lr"]
+    if not (resumed["step"] == straight["step"] == 6
+            and torch.equal(resumed["generator"], straight["generator"])
+            and lr == straight["optimizer"]["param_groups"][0]["lr"]
+            == poly_lr(0.01, 5, 6)):
+        raise AssertionError("cli: the resumed run's step, LR or generator "
+                             "differs from the straight run's")
+
+    model = net_factory("unet", in_chns=1, class_num=4).to(device)
+    model.load_state_dict(ckpt.load_model_params(str(run), 6))
+    rng = np.random.RandomState(1)
+    volumes = {f"vol{i}": make_volume(rng, (256, 256), 4, CLI_DEPTH)
+               for i in range(CLI_VOLUMES)}
+    res = evaluate_2d(list(volumes), volumes.__getitem__,
+                      model_predictor(model, device), 4)
+    dice = res["per_class"][:, 0]
+    _log(f"eval of iter_6: per-class (dice, jc, hd95, asd) "
+         f"{res['per_class'].tolist()}")
+    if not (np.isfinite(res["raw"]).all() and (dice >= 0).all()
+            and (dice <= 1).all()):
+        raise AssertionError(f"cli: eval gave {res['per_class']}")
+    return counts, {"images_per_sec": ips, "syncs": syncs,
+                    "eval_per_class": res["per_class"].tolist()}
 
 
 def main():
@@ -522,9 +719,13 @@ def main():
     phase_build()
     kernels = phase_kernels(device)
     phase_reference(device)
-    counts = phase_main_path(device)
+    counts, main_path = phase_main_path(device)
+    with tempfile.TemporaryDirectory() as workdir:
+        cli_counts, cli = phase_cli(device, Path(workdir))
     for k in kernels:
         k["launches"] = counts[k["name"]]
+        k["launches_cli"] = cli_counts[k["name"]]
+    print(json.dumps({"main_path": main_path, "cli": cli}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

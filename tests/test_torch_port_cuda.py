@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port on the card: the CUDA kernels against their plain PyTorch
+versions, the GPU slice bank against the host pipeline, and the strong
+augmentations against the CPU.
 
 Every test here needs a CUDA GPU and skips without one. This file imports
 nothing of JAX, so it also runs where JAX is not installed:
@@ -8,12 +10,19 @@ nothing of JAX, so it also runs where JAX is not installed:
 Tolerances: the kernels and the plain versions read the same bf16 values
 and accumulate in f32 in another order, so rtol 1e-3 on the f32 outputs;
 gradients that come back in the anchors' bf16 (ulp 2^-8) are held to
-rtol 1e-2.
+rtol 1e-2. Batches from the bank are compared exactly. The photometric
+augmentation is held at atol 1e-5 (f32 on both devices, TF32 off);
+AdvMorph grids at atol 1e-4 and smooth warped images at 2e-4, the bounds
+of test_torch_port_augment.py (8 self-compositions double the f32
+rounding 8 times).
 """
 
+import numpy as np
 import pytest
 import torch
 
+from arco_torch.augment import morph, photometric
+from arco_torch.data import datasets, device_bank, pipeline, synthetic
 from arco_torch.kernels import infonce, launch_counts, pool_sims
 from arco_torch.losses import contrastive
 from arco_torch.ops import sampling
@@ -26,7 +35,7 @@ K, Q, N, C, CAP, T = 3, 32, 64, 496, 1000, 0.5
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+        pytest.skip("needs a CUDA GPU")
     return torch.device("cuda")
 
 
@@ -152,3 +161,66 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         infonce.infonce_fwd(a_n, bank,
                             torch.zeros(1, 2, 3, dtype=torch.int32,
                                         device=cuda), 2.0)
+
+
+@pytest.mark.cuda
+def test_device_slice_bank_matches_the_host_pipeline(cuda, tmp_path):
+    """Synapse npz slices zoomed 40 -> 32: the first 3 GPU batches equal
+    the host pipeline's single-worker stream bit for bit."""
+    root = synthetic.make_synapse_like(str(tmp_path), n_train=12,
+                                       size=(40, 40), num_classes=4)
+    ds = [datasets.SynapseDataset(root, root, "train", index=4,
+                                  label_type=t, output_size=(32, 32))
+          for t in (1, 0)]
+    host = pipeline.TwoStreamPipeline(ds[0], ds[1], 3, seed=4, labeled_bs=1)
+    gen = device_bank.two_stream_device_batches(
+        *(device_bank.DeviceSliceBank.from_dataset(d, cuda) for d in ds),
+        1, 2, seed=4)
+    try:
+        for _ in range(3):
+            want, got = next(host), next(gen)
+            for k in ("image_l", "image_u"):
+                assert got[k].device.type == cuda.type
+                np.testing.assert_array_equal(
+                    got[k].permute(0, 2, 3, 1).cpu().numpy(), want[k])
+            np.testing.assert_array_equal(got["label_l"].cpu().numpy(),
+                                          want["label_l"])
+    finally:
+        host.close()
+
+
+@pytest.mark.cuda
+def test_photometric_on_the_card_matches_the_cpu(cuda):
+    torch.backends.cudnn.allow_tf32 = False
+    for c in (1, 3):
+        x = torch.rand((6, c, 64, 64), generator=torch.Generator()
+                       .manual_seed(c))
+        draws = photometric.draw_photometric(6, torch.Generator()
+                                             .manual_seed(7))
+        want = photometric.batch_photometric(x, draws)
+        got = photometric.batch_photometric(
+            x.to(cuda), {k: v.to(cuda) for k, v in draws.items()})
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coarse_exp", [True, False])
+def test_adv_morph_on_the_card_matches_the_cpu(cuda, coarse_exp):
+    b, hw = 2, 64
+    t = torch.linspace(-1.0, 1.0, hw)
+    x = 0.5 + 0.5 * torch.sin(0.5 * torch.pi * (t[:, None] + 0.5 * t[None])
+                              + torch.arange(b)[:, None, None, None])
+    draws = morph.draw_morph(b, (hw // 8, hw // 8),
+                             torch.Generator().manual_seed(3))
+    draws["p"] = torch.tensor(0.9)
+    m = morph.AdvMorph((b, 1, hw, hw), (hw // 8, hw // 8),
+                       coarse_exp=coarse_exp)
+    want = m.deformation_grid(m.init_params(draws["velocity"]))
+    got = m.deformation_grid(m.init_params(draws["velocity"].to(cuda)))
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-4)
+    want = morph.adv_morph_batch(x, coarse_exp=coarse_exp, draws=draws)
+    got = morph.adv_morph_batch(x.to(cuda), coarse_exp=coarse_exp,
+                                draws={k: v.to(cuda)
+                                       for k, v in draws.items()})
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=2e-4)
+    assert (want - x).abs().max() > 1e-2

@@ -4,18 +4,21 @@ package, and its entry points refuse a CUDA device that is not there."""
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from arco_torch import resolve_device
+from arco_torch.cli import test_2d, train_arco_2d
 from arco_torch.config import ArcoConfig
+from arco_torch.data.device_bank import DeviceSliceBank
 from arco_torch.models import net_factory
 from arco_torch.train import arco2d
 
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "arco_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "arco_tpu")
 
 
 def _port_sources():
@@ -54,3 +57,12 @@ def test_cuda_entry_points_raise_without_a_gpu():
         arco2d.make_arco_step(mods, ArcoConfig(use_photometric=False,
                                                use_adv_morph=False),
                               num_classes=4, max_iterations=10)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        DeviceSliceBank(np.zeros((1, 8, 8), np.float32),
+                        np.zeros((1, 8, 8), np.int8))
+    # the CLIs take the card unless given --device cpu, and refuse before
+    # they read any data
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        train_arco_2d.main(["--root_path", "/nonexistent"])
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        test_2d.main(["--root_path", "/nonexistent"])
