@@ -1,4 +1,5 @@
-"""Carry a JAX ``ArcoState`` across into the port.
+"""Carry a JAX ``ArcoState`` (stage 2) or ``PretrainState`` (stage 1) across
+into the port.
 
 The input is the JAX state as numpy arrays in nested dicts (the memory
 bank as ``{"data", "ptr", "count"}``). This inverts arco_tpu/compat/torch_import.py
@@ -6,6 +7,8 @@ bank as ``{"data", "ptr", "count"}``). This inverts arco_tpu/compat/torch_import
 convert_q_representation_state_dict) without importing it:
 
 - conv kernels [kh, kw, in, out] -> [out, in, kh, kw];
+- Dense kernels [in, out] -> Linear weights [out, in];
+- a stacked head's ``Conv_{i}`` / ``Dense_{i}`` -> its layer ``{i}``;
 - BatchNorm scale/bias + batch_stats mean/var -> weight/bias +
   running_mean/running_var;
 - the random pool [K, H, W, C] is already the port's layout (channels-last
@@ -71,9 +74,19 @@ def feature_extractor_state_dict_from_flax(params) -> dict:
             for name, p in params.items()}
 
 
-def q_representation_state_dict_from_flax(params) -> dict:
-    return {f"{i}.weight": _conv(params[f"Conv_{i}"])["weight"]
-            for i in range(len(params))}
+def head_state_dict_from_flax(params) -> dict:
+    """A stacked head's flax params (QRepresentation, ProjectionHead,
+    LatentMLP, LatentPredictor, OutputsPredictor, RepresentationHead) ->
+    the port head's state_dict."""
+    sd = {}
+    for name, p in params.items():
+        kind, i = name.rsplit("_", 1)
+        layer = {"weight": _t(np.asarray(p["kernel"]).T)} \
+            if kind == "Dense" else _conv(p)
+        if kind == "Dense" and "bias" in p:
+            layer["bias"] = _t(p["bias"])
+        sd.update({f"{i}.{k}": v for k, v in layer.items()})
+    return sd
 
 
 @torch.no_grad()
@@ -95,7 +108,7 @@ def load_flax_arco_state(state, flax_state: dict):
         feature_extractor_state_dict_from_flax(
             flax_state["k_feature_params"]))
     state.q_representation.load_state_dict(
-        q_representation_state_dict_from_flax(params["q_representation"]))
+        head_state_dict_from_flax(params["q_representation"]))
 
     bank, dev = flax_state["memobank"], state.memobank.data.device
     state.memobank.data.copy_(_t(bank["data"]).to(
@@ -106,5 +119,35 @@ def load_flax_arco_state(state, flax_state: dict):
         flax_state["random_pool"], np.float32)).to(
         dev, state.random_pool.dtype))
     state.random_pool_ptr = int(flax_state["random_pool_ptr"])
+    state.step = int(flax_state.get("step", 0))
+    return state
+
+
+@torch.no_grad()
+def load_flax_pretrain_state(state, flax_state: dict):
+    """Copy a JAX PretrainState (numpy, as ``{"params", "batch_stats",
+    "ema_params", "ema_batch_stats", "queue", "queue_ptr", "queue_mask",
+    "mask_queue_ptr", "step"}``) into the port's
+    ``train.pretrain.PretrainState`` in place. The queues keep their
+    layout: JAX flattens each descriptor in (h, w, c) order, as the port
+    does. The optimizer's momentum is not carried."""
+    params, ema = flax_state["params"], flax_state["ema_params"]
+    for target, p, s in ((state.model, params, flax_state["batch_stats"]),
+                         (state.ema_model, ema,
+                          flax_state["ema_batch_stats"])):
+        target.load_state_dict(unet_state_dict_from_flax(p["model"],
+                                                         s["model"]))
+    for name in ("latent_head", "latent_predictor", "outputs_head",
+                 "outputs_predictor"):
+        getattr(state, name).load_state_dict(
+            head_state_dict_from_flax(params[name]))
+    for name in ("latent_head", "outputs_head"):
+        getattr(state, f"ema_{name}").load_state_dict(
+            head_state_dict_from_flax(ema[name]))
+    for name in ("queue", "queue_mask"):
+        dst = getattr(state, name)
+        dst.copy_(_t(np.asarray(flax_state[name], np.float32)).to(dst))
+    state.queue_ptr = int(flax_state["queue_ptr"])
+    state.mask_queue_ptr = int(flax_state["mask_queue_ptr"])
     state.step = int(flax_state.get("step", 0))
     return state

@@ -167,9 +167,10 @@ class ArcoConfig:
     # O(n) histogram percentile instead of a device sort for the entropy
     # split (see arco2d.masked_percentiles_histogram)
     fast_percentile: bool = False
-    # rematerialize student forwards (jax.checkpoint): trades FLOPs for HBM
-    # — useful for the 3D path where 5 V-Net forwards at [112,112,80] are
-    # activation-memory-bound (SURVEY §7.3 hard part #4)
+    # rematerialize the student forwards that carry a gradient
+    # (torch.utils.checkpoint; jax.checkpoint in JAX): trades FLOPs for
+    # device memory — useful for the 3D path where 5 V-Net forwards at
+    # [112,112,80] are activation-memory-bound (SURVEY §7.3 hard part #4)
     remat: bool = False
 
 

@@ -43,3 +43,14 @@ def dice_loss(probs: torch.Tensor, labels: torch.Tensor, num_classes: int,
     if weight is not None:
         loss = loss * torch.as_tensor(weight, device=loss.device)
     return loss.mean()
+
+
+def kld_batchmean(student_logits: torch.Tensor,
+                  teacher_logits: torch.Tensor):
+    """KL(softmax(teacher) || softmax(student)) with reduction='batchmean'
+    (pretrain_2D.py:99-103): in f32, summed over every element and divided
+    by the row count."""
+    logp = torch.log_softmax(student_logits.float(), dim=-1)
+    logq = torch.log_softmax(teacher_logits.float(), dim=-1)
+    q = torch.softmax(teacher_logits.float(), dim=-1)
+    return (q * (logq - logp)).sum() / student_logits.shape[0]

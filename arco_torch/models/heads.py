@@ -1,12 +1,16 @@
-"""Fusion and representation heads of the ARCO stage (counterpart of
-arco_tpu/models/heads.py: FeatureExtractor, QRepresentation).
+"""Heads of both stages (counterpart of arco_tpu/models/heads.py).
 
-Both heads are pure 1x1 convolutions, so they compute as matrix products
-over the channel dim of channels-last [B, H, W, C] tensors: the fused
-representation comes out channels-last and contiguous, which is the layout
-the contrastive loss and the random pool flatten ([rows, C] and [B, H*W*C])
-with no copy. Weights keep the reference's conv shapes and names
-(``fea{i}.weight`` [out, in, 1, 1]; QRepresentation ``{0,1}.weight``).
+Stage 2: FeatureExtractor, QRepresentation. Stage 1 (ISD): ProjectionHead,
+LatentMLP, LatentPredictor, OutputsPredictor; and RepresentationHead.
+
+The 1x1-conv heads compute as matrix products over the channel dim of
+channels-last [B, H, W, C] tensors: the fused representation comes out
+channels-last and contiguous, which is the layout the contrastive loss and
+the random pool flatten ([rows, C] and [B, H*W*C]) with no copy, and the
+ISD descriptors flatten each pooled cell in JAX's (h, w, c) order. Weights
+keep the reference's conv shapes ([out, in, 1, 1]; ``fea{i}.weight``);
+the stacked heads name their layers by position (``{i}.weight``), as
+flax's ``Conv_{i}`` / ``Dense_{i}``.
 """
 
 from __future__ import annotations
@@ -17,11 +21,17 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from arco_torch.models.layers import adaptive_avg_pool
 from arco_torch.ops.interpolate import resize_bilinear
 
 
 def _nhwc(x):
     return x.permute(0, 2, 3, 1)
+
+
+def _conv1x1(x, conv):
+    """A 1x1 ``conv`` over the channel dim of channels-last ``x``."""
+    return F.linear(x, conv.weight[:, :, 0, 0], conv.bias)
 
 
 def _resize_nhwc(z, size):
@@ -85,7 +95,16 @@ class FeatureExtractor(nn.Module):
         return z
 
 
-class QRepresentation(nn.Sequential):
+class _Conv1x1Stack(nn.Sequential):
+    """1x1 convs applied in turn over the channel dim of channels-last x."""
+
+    def forward(self, x):
+        for conv in self:
+            x = _conv1x1(x, conv)
+        return x
+
+
+class QRepresentation(_Conv1x1Stack):
     """Two bias-free 1x1 convs over the fused channels-last map
     (train_arco_2d.py:231-235)."""
 
@@ -93,7 +112,71 @@ class QRepresentation(nn.Sequential):
         super().__init__(nn.Conv2d(channels, channels, 1, bias=False),
                          nn.Conv2d(channels, channels, 1, bias=False))
 
+
+class ProjectionHead(_Conv1x1Stack):
+    """AdaptiveAvgPool to ``output_pooling_size``, then 1x1 convs in -> 2*in
+    -> proj_dim (``proj="convmlp"``) or one 1x1 conv in -> proj_dim
+    (``"linear"``, no pool), over channels-last [N, H, W, C]
+    (model_2D.py:67-92)."""
+
+    def __init__(self, in_channels: int, proj_dim: int = 4,
+                 output_pooling_size: int = 16, proj: str = "convmlp"):
+        if proj == "linear":
+            convs = [nn.Conv2d(in_channels, proj_dim, 1)]
+        else:
+            convs = [nn.Conv2d(in_channels, 2 * in_channels, 1),
+                     nn.Conv2d(2 * in_channels, proj_dim, 1)]
+        super().__init__(*convs)
+        self.output_pooling_size = output_pooling_size
+        self.proj = proj
+
+    def forward(self, x, pre_pooled: bool = False):
+        """``pre_pooled``: the caller already pooled x to
+        output_pooling_size (ops.patches.pooled_patch_grid)."""
+        if self.proj != "linear" and not pre_pooled:
+            x = _nhwc(adaptive_avg_pool(x.permute(0, 3, 1, 2),
+                                        self.output_pooling_size))
+        return super().forward(x)
+
+
+class RepresentationHead(nn.Sequential):
+    """3x3 conv (no bias) + 1x1 conv, NCHW in and out (model_2D.py:87-95)."""
+
+    def __init__(self, in_channels: int, output_channel: int = 512):
+        super().__init__(
+            nn.Conv2d(in_channels, output_channel, 3, padding=1, bias=False),
+            nn.Conv2d(output_channel, output_channel, 1))
+
+
+class LatentMLP(nn.Sequential):
+    """The latent head: AdaptiveAvgPool to ``pooling_size`` of the NCHW
+    bottleneck, flattened in (h, w, c) order as JAX flattens its
+    channels-last map, then two Linear layers (model_2D.py:98-112)."""
+
+    def __init__(self, input_channels: int = 256, num_class: int = 128,
+                 pooling_size: int = 1):
+        super().__init__(
+            nn.Linear(input_channels * pooling_size ** 2, input_channels),
+            nn.Linear(input_channels, num_class))
+        self.pooling_size = pooling_size
+
     def forward(self, x):
-        for conv in self:
-            x = F.linear(x, conv.weight[:, :, 0, 0])
-        return x
+        x = _nhwc(adaptive_avg_pool(x, self.pooling_size))
+        return super().forward(x.reshape(x.shape[0], -1))
+
+
+class LatentPredictor(nn.Sequential):
+    """Two Linear layers (model_2D.py:146-151)."""
+
+    def __init__(self, feature_size: int = 512):
+        super().__init__(nn.Linear(feature_size, feature_size),
+                         nn.Linear(feature_size, feature_size))
+
+
+class OutputsPredictor(_Conv1x1Stack):
+    """Two 1x1 convs with bias over channels-last class maps
+    (model_2D.py:157-160)."""
+
+    def __init__(self, num_classes: int = 4):
+        super().__init__(nn.Conv2d(num_classes, num_classes, 1),
+                         nn.Conv2d(num_classes, num_classes, 1))

@@ -7,6 +7,8 @@ reference checkpoints load by name.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -30,20 +32,38 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
+        # off while a checkpointed forward is recomputed (running_stats_
+        # frozen): the statistics move once per forward, as in JAX
+        self.update_stats = True
 
     def forward(self, x):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
-                                       correction=0)
-            self.running_mean.mul_(1 - self.momentum).add_(
-                mean, alpha=self.momentum)
-            self.running_var.mul_(1 - self.momentum).add_(
-                var, alpha=self.momentum)
+        if self.update_stats:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                           correction=0)
+                self.running_mean.mul_(1 - self.momentum).add_(
+                    mean, alpha=self.momentum)
+                self.running_var.mul_(1 - self.momentum).add_(
+                    var, alpha=self.momentum)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+
+@contextlib.contextmanager
+def running_stats_frozen(module: nn.Module):
+    """Train-mode forwards of ``module`` inside the block normalize with the
+    batch statistics as usual but leave the running statistics alone."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for m in bns:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.update_stats = True
 
 
 def dropout(x, p: float, mask=None, generator=None, training: bool = True):
@@ -106,3 +126,11 @@ class BilinearUp(nn.Module):
         x = self.conv1x1(x)
         return resize_bilinear(x, tuple(2 * s for s in x.shape[2:]),
                                align_corners=True)
+
+
+def adaptive_avg_pool(x, out_size: int):
+    """torch AdaptiveAvgPool over the spatial dims of NCHW ``x`` (counterpart
+    of arco_tpu/models/layers.py:adaptive_avg_pool, which is channels-last):
+    output cell i averages input rows floor(i*n/o) .. ceil((i+1)*n/o), so
+    sizes that do not divide are covered too."""
+    return F.adaptive_avg_pool2d(x, out_size)

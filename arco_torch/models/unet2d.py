@@ -84,6 +84,24 @@ class UNet(nn.Module):
         self.encoder = Encoder(in_chns, ft_chns, dropout)
         self.decoder = Decoder(ft_chns, class_num)
 
+    def draw_dropout_masks(self, x_shape, generator=None, device=None):
+        """The keep-masks that a train-mode forward of an input of
+        ``x_shape`` draws from ``generator``, drawn in the same order (None
+        for a block without dropout): a forward given them draws nothing."""
+        enc = self.encoder
+        blocks = [enc.in_conv] + [getattr(enc, f"down{k}").maxpool_conv[1]
+                                  for k in range(1, enc.depth)]
+        b, _, h, w = x_shape
+        masks = []
+        for k, block in enumerate(blocks):
+            if k:
+                h, w = h // 2, w // 2
+            p = block.dropout_p
+            shape = (b, block.conv_conv[0].out_channels, h, w)
+            masks.append(torch.rand(shape, generator=generator, device=device)
+                         < (1.0 - p) if self.training and p > 0.0 else None)
+        return masks
+
     def forward(self, x, dropout_masks=None, generator=None):
         """``dropout_masks``: optional list of one keep-mask per encoder
         block (None entries draw from ``generator``)."""

@@ -16,7 +16,11 @@ models and heads run under autocast in the compute dtype (bf16 on the main
 path); losses, percentiles and the optimizer run in f32. The InfoNCE term
 goes through the fused kernel pair and the revisiting loss through the
 pool_sims kernel (arco_torch/kernels). The strong augmentations run in f32
-outside autocast. ``remat`` is not ported and raises.
+outside autocast. With ``remat`` the student forwards that carry a gradient
+(labeled, unlabeled, TPS) keep no activations and recompute them in the
+backward (torch.utils.checkpoint), which changes nothing in the result:
+their dropout masks are drawn before the forward and handed to both runs,
+and the recompute leaves the BatchNorm running statistics alone.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from dataclasses import dataclass
 from typing import Any, NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from arco_torch import resolve_device
 from arco_torch.augment.mixing import generate_unsup_data
@@ -41,6 +46,7 @@ from arco_torch.losses.contrastive import (MemoBank,
                                            create_memobank, descending_rank)
 from arco_torch.losses.supervised import cross_entropy, dice_loss, one_hot
 from arco_torch.models.heads import FeatureExtractor, QRepresentation
+from arco_torch.models.layers import running_stats_frozen
 from arco_torch.ops import normalize
 from arco_torch.ops.interpolate import resize_nearest
 from arco_torch.ops.ring_buffer import enqueue_fixed
@@ -219,6 +225,20 @@ def _autocast(device, dtype):
     return torch.autocast(device.type, dtype=dtype)
 
 
+def _student_forward(model, x, masks, gen, remat: bool):
+    """model(x, masks, gen); with ``remat`` and a gradient to take, as a
+    checkpointed region whose recompute draws the same dropout masks
+    (drawn here, before it) and leaves the running statistics alone."""
+    if not (remat and torch.is_grad_enabled()):
+        return model(x, masks, gen)
+    if masks is None:
+        masks = model.draw_dropout_masks(x.shape, gen, x.device)
+    return torch.utils.checkpoint.checkpoint(
+        model, x, masks, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(),
+                            running_stats_frozen(model)))
+
+
 def _fuse(fe, l_fmap, u_fmap):
     """One head application over the labeled ++ unlabeled maps (the heads
     are convs only, so this is exact)."""
@@ -238,12 +258,15 @@ def arco_loss_fn(state: ArcoState, modules: ArcoModules, cfg, batch, aug,
     model = state.model
     cast = lambda: _autocast(dev, state.compute_dtype)
 
+    remat = cfg.remat
     with cast():
-        pred_l, _, l_fmap = model(image_l, dmask.get("l"), gen)
+        pred_l, _, l_fmap = _student_forward(model, image_l, dmask.get("l"),
+                                             gen, remat)
         if getattr(cfg, "dead_forward", False):
             with torch.no_grad():
                 model(aug["images_cj2_l"], dmask.get("dead"), gen)
-        pred_u, _, u_fmap = model(u_aug_data, dmask.get("u"), gen)
+        pred_u, _, u_fmap = _student_forward(model, u_aug_data,
+                                             dmask.get("u"), gen, remat)
         rep_all = state.q_representation(
             _fuse(state.feature_extractor, l_fmap, u_fmap))
     b_l = pred_l.shape[0]
@@ -341,7 +364,8 @@ def arco_loss_fn(state: ArcoState, modules: ArcoModules, cfg, batch, aug,
         grad_ctx = contextlib.nullcontext() if cfg.use_eqv_loss \
             else torch.no_grad()
         with grad_ctx, cast():
-            pred_tps, _, _ = model(images_tps, dmask.get("tps"), gen)
+            pred_tps, _, _ = _student_forward(model, images_tps,
+                                              dmask.get("tps"), gen, remat)
         loss_eqv = equivariance_loss(_nhwc(pred_tps), pred_tps_org, mask_tps)
 
     loss = (cfg.k1 * reco + cfg.k3 * unsup + supervised
@@ -376,8 +400,6 @@ def make_arco_step(modules: ArcoModules, cfg, num_classes: int,
     """
     device = resolve_device(device)
     optim = optim or OptimConfig()
-    if cfg.remat:
-        raise NotImplementedError("remat is not ported")
 
     def step_fn(state: ArcoState, batch, draws=None):
         draws = draws or {}

@@ -1,11 +1,14 @@
-"""Checkpoints of the port's stage-2 state (counterpart of
+"""Checkpoints of the port's stage-1 and stage-2 states (counterpart of
 arco_tpu/train/checkpoint.py), with ``torch.save`` of state dicts.
 
-The directory layout is the JAX package's: ``iter_<N>`` holds the
-reference-style weight checkpoint (student with its heads, BatchNorm
-statistics, the EMA teacher, the teacher feature extractor) and
-``full_iter_<N>`` the rolling resume state, which adds the optimizer, the
-step and the generator's state. The memory bank and the random pool (the
+The directory layout is the JAX package's. Stage 1 writes its whole state
+to ``iter_<N>`` (``save_state``), so a rerun resumes it exactly; its
+``model`` entry is the student U-Net, which stage 2 starts from
+(``load_model_params``). In stage 2 ``iter_<N>`` holds the reference-style
+weight checkpoint (student with its heads, BatchNorm statistics, the EMA
+teacher, the teacher feature extractor) and ``full_iter_<N>`` the rolling
+resume state, which adds the optimizer, the step and the generator's
+state. The memory bank and the random pool (the
 pool alone is GB-scale) are left out of the resume state by default
 (``RESUME_EXCLUDE``): both refill from live teacher keys within ~200 steps.
 Pass ``exclude=()`` for a complete-state save. Each directory holds one
@@ -84,6 +87,43 @@ def restore_model_fallback(snapshot_dir: str, step: int, state, optim):
                                      optim.weight_decay, optim.momentum,
                                      optim.nesterov)
     state.step = step
+    return state
+
+
+# the modules of the pretrain's PretrainState (train/pretrain.py)
+_PRETRAIN_MODULES = ("model", "latent_head", "latent_predictor",
+                     "outputs_head", "outputs_predictor", "ema_model",
+                     "ema_latent_head", "ema_outputs_head")
+
+
+def save_state(snapshot_dir: str, step: int, state):
+    """The pretrain's iter_<N>: the whole PretrainState (student and
+    teacher modules with BatchNorm statistics, both queues and pointers,
+    optimizer, generator, step)."""
+    _save(_path(snapshot_dir, step), {
+        "step": state.step,
+        **{name: getattr(state, name).state_dict()
+           for name in _PRETRAIN_MODULES},
+        "queue": state.queue, "queue_ptr": state.queue_ptr,
+        "queue_mask": state.queue_mask,
+        "mask_queue_ptr": state.mask_queue_ptr,
+        "optimizer": state.optimizer.state_dict(),
+        "generator": state.generator.get_state()})
+
+
+def restore_state(snapshot_dir: str, step: int, state):
+    """Inverse of save_state, in place."""
+    tree = _load(_path(snapshot_dir, step))
+    for name in _PRETRAIN_MODULES:
+        getattr(state, name).load_state_dict(tree[name])
+    state.optimizer.load_state_dict(tree["optimizer"])
+    state.generator.set_state(tree["generator"])
+    with torch.no_grad():
+        state.queue.copy_(tree["queue"])
+        state.queue_mask.copy_(tree["queue_mask"])
+    state.queue_ptr = int(tree["queue_ptr"])
+    state.mask_queue_ptr = int(tree["mask_queue_ptr"])
+    state.step = int(tree["step"])
     return state
 
 

@@ -17,14 +17,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    same step on the CPU (f32, plain versions) from the same state, batch
    and draws: once with the strong augmentation off and once at the
    defaults (photometric jitter/blur and AdvMorph on, draws that fire
-   them);
+   them); likewise one small stage-1 pretrain step; and one small stage-2
+   step with ``remat=True`` against the same step without it, both on the
+   card;
 5. drive the main path: ``init_arco_state`` + 3 ``make_arco_step`` steps of
    the stage-2 ARCO trainer at the ``ArcoConfig`` defaults and full width
    (U-Net 16..256, 496-channel reps, 256x256 slices, 2 labeled + 2
    unlabeled, K=36 pool, 50000/30000 banks filled with normalized rows,
    photometric and AdvMorph on, bf16), then 3 with the strong augmentation
    off, with every loss finite and every kernel's launch count equal to the
-   number of steps; and time the two strong augmentations alone;
+   number of steps; time the two strong augmentations alone; and take two
+   more steps with ``remat=True``, whose peak memory it prints beside
+   that of the six steps;
 6. drive the CLI: ``arco_torch.cli.train_arco_2d`` trains 4 steps at the
    defaults on a synthetic 256x256 Synapse-layout tree (npz slices: the
    card has no h5py) from the GPU slice bank and checkpoints; a rerun to 6
@@ -32,11 +36,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``torch.cuda.set_sync_debug_mode("warn")``, counts the host syncs and
    must end with the same step, LR and generator state; the iter_6
    weights are evaluated with ``eval.slice2d.evaluate_2d`` on two
-   in-memory volumes.
+   in-memory volumes;
+7. drive the two stages through their CLIs at full width on the same tree:
+   ``arco_torch.cli.pretrain_2d`` trains 4 steps at the ``ISDConfig``
+   defaults (bs 2+2, K=36 queues, 64x64 patches pooled to 8x8) and
+   checkpoints, a rerun to 6 resumes from iter_4 (every loss finite, both
+   queue pointers at 24, no kernel launched: stage 1 reaches none), and
+   ``train_arco_2d --resume`` trains 2 stage-2 steps from its iter_6, each
+   kernel launching once a step.
 
-It then prints one JSON line with the kernels' numbers and, last, the
-device line. Without a CUDA GPU, or without the repository beside it, it
-prints no result and exits non-zero.
+It then prints one JSON line with the phases' numbers, one with the
+kernels' numbers and, last, the device line. Without a CUDA GPU, or
+without the repository beside it, it prints no result and exits non-zero.
 
 Each kernel's "ms", "plain_ms" and "library_ms" time one call between two
 CUDA events, the host's work before the launch included. Its "device_ms"
@@ -46,6 +57,7 @@ between two CUDA events.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -454,6 +466,95 @@ def phase_reference(device):
             _log(f"  reference ({label}) {k}: card {g:.6f} cpu {w:.6f}")
             if not abs(g - w) <= 2e-2 + 5e-2 * abs(w):
                 raise AssertionError(f"{label} {k}: card {g} vs cpu {w}")
+    _pretrain_reference(device)
+    _remat_reference(device, small)
+
+
+def _pretrain_reference(device):
+    """One small stage-1 step on ``device`` (bf16 autocast) against the same
+    step on the CPU (f32): the same weights, queues and batch, dropout-free
+    U-Nets; phase 4's tolerance per loss term."""
+    import torch
+    from arco_torch.config import ISDConfig
+    from arco_torch.models import net_factory
+    from arco_torch.train import pretrain
+    hw, b, nc = 64, 2, 4
+    cfg = ISDConfig(K=4, latent_feature_size=64, output_pooling_size=4,
+                    patch_size=32)
+
+    def build(dev, dtype):
+        torch.manual_seed(1)
+        mods = pretrain.make_isd_modules(
+            net_factory("unet", in_chns=1, class_num=nc,
+                        dropout=(0.0,) * 5), nc, latent_feature_size=64,
+            output_pooling_size=4)
+        state = pretrain.init_pretrain_state(mods, cfg, (b, 1, hw, hw),
+                                             seed=1, device=dev,
+                                             compute_dtype=dtype)
+        return state, pretrain.make_pretrain_step(cfg, 1, nc, 100,
+                                                  device=dev)
+
+    ref_state, ref_step = build("cpu", torch.float32)
+    state, step = build(device, torch.bfloat16)
+    state.queue.copy_(ref_state.queue)
+    state.queue_mask.copy_(ref_state.queue_mask)
+    gen = torch.Generator().manual_seed(2)
+    image, label = _synthetic_batch(b, hw, gen, "cpu")
+    teacher = image + 0.05 * torch.randn(image.shape, generator=gen)
+    batch = {"student_image": image, "teacher_image": teacher,
+             "label": label}
+    want = ref_step(ref_state, batch)
+    got = step(state, _to(batch, device))
+    for k in want:
+        g, w = float(got[k]), float(want[k])
+        _log(f"  reference (pretrain) {k}: card {g:.6f} cpu {w:.6f}")
+        if not abs(g - w) <= 2e-2 + 5e-2 * abs(w):
+            raise AssertionError(f"pretrain {k}: card {g} vs cpu {w}")
+    if (state.queue_ptr, state.mask_queue_ptr) != (2, 2):
+        raise AssertionError("pretrain: the queue pointers are off")
+
+
+def _remat_reference(device, small):
+    """One small stage-2 step with ``remat=True`` against the same step
+    without it, both on the card (U-Net dropout and the strong augmentation
+    on, drawn from the state's generator): loss terms and BatchNorm running
+    statistics within 1e-3 relative."""
+    import torch
+    from arco_torch.config import ArcoConfig
+    from arco_torch.models import net_factory
+    from arco_torch.train import arco2d
+    hw, b, nc = 64, 2, 4
+    gen = torch.Generator().manual_seed(3)
+    image_l, label_l = _synthetic_batch(b, hw, gen, "cpu")
+    image_u, _ = _synthetic_batch(b, hw, gen, "cpu")
+    batch = _to({"image_l": image_l, "label_l": label_l,
+                 "image_u": image_u}, device)
+    runs = []
+    for remat in (False, True):
+        cfg = ArcoConfig(remat=remat, **small)
+        torch.manual_seed(1)
+        mods = arco2d.make_arco_modules(
+            net_factory("unet", in_chns=1, class_num=nc), hw, hw,
+            batch_size=b)
+        state = arco2d.init_arco_state(mods, cfg, (b, 1, hw, hw), seed=1,
+                                       device=device)
+        step = arco2d.make_arco_step(mods, cfg, num_classes=nc,
+                                     max_iterations=100, device=device)
+        runs.append((step(state, batch), state.model.state_dict()))
+    (want, sd_want), (got, sd_got) = runs
+    for k, w in want.items():
+        if w.ndim:
+            continue
+        g, w = float(got[k]), float(w)
+        _log(f"  reference (remat) {k}: on {g:.6f} off {w:.6f}")
+        if not abs(g - w) <= 1e-6 + 1e-3 * abs(w):
+            raise AssertionError(f"remat {k}: on {g} vs off {w}")
+    stats = [k for k in sd_want if "running" in k]
+    err = max(((sd_got[k] - sd_want[k]).abs()
+               / (sd_want[k].abs() + 1e-6)).max().item() for k in stats)
+    _log(f"  reference (remat) BatchNorm statistics: max rel err {err:.3g}")
+    if not err <= 1e-3:
+        raise AssertionError(f"remat: running statistics differ by {err}")
 
 
 def _check_steps(label, metrics, step_ms, b_l, hw):
@@ -565,10 +666,29 @@ def phase_main_path(device):
         _log(f"step ms ({label}) {[round(t, 2) for t in step_ms[label]]}")
     _log(f"peak memory {peak / 2**30:.2f} GiB")
     aug_ms = _time_strong_aug(device, b_u, hw)
-    del state, steps, batches, metrics, bank
+
+    # two more steps at the defaults with remat=True, their own peak
+    remat_step = arco2d.make_arco_step(
+        mods, dataclasses.replace(cfg, remat=True),
+        num_classes=data.num_classes, max_iterations=30000, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    remat_ms, remat_metrics = [], []
+    for batch in batches[:2]:
+        t0 = time.perf_counter()
+        remat_metrics.append(remat_step(state, batch))
+        torch.cuda.synchronize()
+        remat_ms.append((time.perf_counter() - t0) * 1e3)
+    remat_peak = torch.cuda.max_memory_allocated()
+    _check_steps("remat", remat_metrics, remat_ms, b_l, hw)
+    _log(f"peak memory: {peak / 2**30:.2f} GiB over the 6 steps, "
+         f"{remat_peak / 2**30:.2f} GiB over 2 steps with remat=True")
+    del state, steps, remat_step, batches, metrics, bank, remat_metrics
     torch.cuda.empty_cache()
     return counts, {"step_ms": step_ms, "peak_gib": peak / 2**30,
-                    "strong_aug_device_ms": aug_ms}
+                    "strong_aug_device_ms": aug_ms,
+                    "remat_step_ms": remat_ms,
+                    "remat_peak_gib": remat_peak / 2**30}
 
 
 # the CLI phase's tree: 64 slices of 256x256, of which labeled_num 1 of the
@@ -607,22 +727,20 @@ def _cli_sync_sites(run):
     return dict(sites.most_common())
 
 
-def phase_cli(device, workdir):
-    """The port's CLI at the defaults: train 4 steps and checkpoint,
-    resume to 6, a straight 6-step run under sync debug mode, and an
-    evaluation of the iter_6 weights."""
+def phase_cli(device, workdir, root):
+    """The port's CLI at the defaults on the npz tree ``root``: train 4
+    steps and checkpoint, resume to 6, a straight 6-step run under sync
+    debug mode, and an evaluation of the iter_6 weights."""
     import pickle
     import numpy as np
     import torch
     from arco_torch.cli import train_arco_2d
-    from arco_torch.data.synthetic import make_synapse_like, make_volume
+    from arco_torch.data.synthetic import make_volume
     from arco_torch.eval.slice2d import evaluate_2d, model_predictor
     from arco_torch.kernels import launch_counts, reset_launch_counts
     from arco_torch.models import net_factory
     from arco_torch.train import checkpoint as ckpt
     from arco_torch.train.schedule import poly_lr
-    root = make_synapse_like(str(workdir / "Synapse"), n_train=CLI_SLICES,
-                             size=(256, 256))
     model_dir = str(workdir / "model")
     snap = lambda exp: Path(model_dir) / f"{exp}_1_labeledfinal" / "unet"
 
@@ -698,6 +816,94 @@ def phase_cli(device, workdir):
                     "eval_per_class": res["per_class"].tolist()}
 
 
+def phase_two_stage(device, workdir, root):
+    """Stage 1 then stage 2 through the CLIs at the defaults: pretrain 4
+    steps and checkpoint, resume to 6, then train_arco_2d --resume for 2
+    steps from the pretrain's iter_6."""
+    import torch
+    from arco_torch.cli import pretrain_2d, train_arco_2d
+    from arco_torch.data.datasets import SynapseDataset
+    from arco_torch.kernels import launch_counts, reset_launch_counts
+    model_dir = str(workdir / "two_stage")
+    exp = "Synapse/pretrain"
+    common = ["--root_path", root, "--labeled_num", "1", "--snapshot_dir",
+              model_dir, "--log_every", "1", "--ckpt_every", "2"]
+
+    def pretrain(iterations):
+        cfg, snap = pretrain_2d.parse(
+            common + ["--exp", exp, "--max_iterations", str(iterations)])
+        # the card has no h5py: the npz slices, all 64 (44 labeled)
+        pretrain_2d.train(cfg, snap, dataset=SynapseDataset(
+            root, root, "train", output_size=cfg.data.patch_size))
+        return cfg, Path(snap)
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pretrain(4)
+    t1 = time.perf_counter()
+    cfg, run = pretrain(6)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    if any(launch_counts().values()):
+        raise AssertionError(f"stage 1 launched kernels: {launch_counts()}")
+    log = (run / "log.txt").read_text()
+    for want in (f"device data path: {CLI_SLICES} slices staged on {device}",
+                 "resuming pretrain state from iter_4",
+                 "iteration 6 : loss"):
+        if want not in log:
+            raise AssertionError(f"pretrain: log.txt lacks {want!r}")
+    rows = [json.loads(line)
+            for line in (run / "metrics.jsonl").read_text().splitlines()]
+    terms = ("loss", "loss_ce", "loss_dice", "loss_latent", "loss_output")
+    if len(rows) != 6 or not all(math.isfinite(r[k]) for r in rows
+                                 for k in terms):
+        raise AssertionError(f"pretrain: metrics {rows}")
+    tree = torch.load(run / "iter_6" / "state.pt", map_location="cpu",
+                      weights_only=True)
+    ptrs = (tree["queue_ptr"], tree["mask_queue_ptr"])
+    bs = cfg.data.batch_size
+    if tree["step"] != 6 or ptrs != (6 * bs % cfg.isd.K,) * 2:
+        raise AssertionError(f"pretrain: step {tree['step']}, queue "
+                             f"pointers {ptrs}")
+    ips = [r["images_per_sec"] for r in rows]
+    # the first step of each run includes cuDNN's and the allocator's
+    # warm-up; a log line every step, so each interval is one step
+    steady = ips[1:4] + ips[5:]
+    step_ms = [1e3 * bs / v for v in ips]
+    _log(f"pretrain: 4 steps in {t1 - t0:.1f} s, resumed to 6 in "
+         f"{t2 - t1:.1f} s (set-up included); queue pointers {ptrs}")
+    _log(f"pretrain step ms {[round(t, 2) for t in step_ms]}; img/s median "
+         f"after each run's first step {statistics.median(steady):.2f}; "
+         f"peak memory {peak / 2**30:.2f} GiB")
+
+    reset_launch_counts()
+    train_arco_2d.main(common + ["--exp", "Synapse/arco", "--resume", exp,
+                                 "--max_iterations", "2"])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    arco_run = Path(model_dir) / "Synapse/arco_1_labeledfinal" / "unet"
+    log = (arco_run / "log.txt").read_text()
+    if "loading stage-1 checkpoint iter_6" not in log:
+        raise AssertionError("stage 2: log.txt lacks the stage-1 handoff")
+    rows2 = [json.loads(line) for line in
+             (arco_run / "metrics.jsonl").read_text().splitlines()]
+    if len(rows2) != 2 or not all(math.isfinite(r["loss"]) for r in rows2):
+        raise AssertionError(f"stage 2: metrics {rows2}")
+    _log(f"stage 2 from the pretrain's iter_6: losses "
+         f"{[r['loss'] for r in rows2]}; launches {counts}")
+    for name, n in counts.items():
+        if n != 2:
+            raise AssertionError(f"stage 2: {name} launched {n} times in 2 "
+                                 "steps")
+    return counts, {"pretrain_images_per_sec": ips,
+                    "pretrain_step_ms": step_ms,
+                    "pretrain_peak_gib": peak / 2**30,
+                    "stage2_losses": [r["loss"] for r in rows2]}
+
+
 def main():
     try:
         import torch
@@ -720,12 +926,19 @@ def main():
     kernels = phase_kernels(device)
     phase_reference(device)
     counts, main_path = phase_main_path(device)
+    from arco_torch.data.synthetic import make_synapse_like
     with tempfile.TemporaryDirectory() as workdir:
-        cli_counts, cli = phase_cli(device, Path(workdir))
+        workdir = Path(workdir)
+        root = make_synapse_like(str(workdir / "Synapse"),
+                                 n_train=CLI_SLICES, size=(256, 256))
+        cli_counts, cli = phase_cli(device, workdir, root)
+        two_counts, two_stage = phase_two_stage(device, workdir, root)
     for k in kernels:
         k["launches"] = counts[k["name"]]
         k["launches_cli"] = cli_counts[k["name"]]
-    print(json.dumps({"main_path": main_path, "cli": cli}))
+        k["launches_two_stage"] = two_counts[k["name"]]
+    print(json.dumps({"main_path": main_path, "cli": cli,
+                      "two_stage": two_stage}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

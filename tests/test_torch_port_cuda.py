@@ -1,6 +1,7 @@
 """The port on the card: the CUDA kernels against their plain PyTorch
-versions, the GPU slice bank against the host pipeline, and the strong
-augmentations against the CPU.
+versions, the GPU slice bank against the host pipeline, the strong
+augmentations against the CPU, a small pretrain step against the CPU, and
+the stage-2 step with ``remat`` against the step without it.
 
 Every test here needs a CUDA GPU and skips without one. This file imports
 nothing of JAX, so it also runs where JAX is not installed:
@@ -10,7 +11,11 @@ nothing of JAX, so it also runs where JAX is not installed:
 Tolerances: the kernels and the plain versions read the same bf16 values
 and accumulate in f32 in another order, so rtol 1e-3 on the f32 outputs;
 gradients that come back in the anchors' bf16 (ulp 2^-8) are held to
-rtol 1e-2. Batches from the bank are compared exactly. The photometric
+rtol 1e-2. Batches from the bank are compared exactly. The pretrain step
+in bf16 autocast is held to the f32 CPU step at rtol 5e-2 / atol 2e-2 per
+loss term (chip_smoke.py's phase 4 tolerance); ``remat`` on the card, where
+cuDNN may pick other algorithms for the recompute, at 1e-3 relative on the
+loss terms and the BatchNorm running statistics. The photometric
 augmentation is held at atol 1e-5 (f32 on both devices, TF32 off);
 AdvMorph grids at atol 1e-4 and smooth warped images at 2e-4, the bounds
 of test_torch_port_augment.py (8 self-compositions double the f32
@@ -22,10 +27,13 @@ import pytest
 import torch
 
 from arco_torch.augment import morph, photometric
+from arco_torch.config import ArcoConfig, ISDConfig
 from arco_torch.data import datasets, device_bank, pipeline, synthetic
 from arco_torch.kernels import infonce, launch_counts, pool_sims
 from arco_torch.losses import contrastive
+from arco_torch.models import net_factory
 from arco_torch.ops import sampling
+from arco_torch.train import arco2d, pretrain
 
 torch.set_num_threads(1)
 
@@ -224,3 +232,76 @@ def test_adv_morph_on_the_card_matches_the_cpu(cuda, coarse_exp):
                                        for k, v in draws.items()})
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=2e-4)
     assert (want - x).abs().max() > 1e-2
+
+
+def _pretrain_step_on(device, dtype, hw=64, nc=4):
+    """One small pretrain step (dropout-free U-Net, seeded weights and
+    batch); the queues come from the CPU generator on both devices."""
+    cfg = ISDConfig(K=4, latent_feature_size=64, output_pooling_size=4,
+                    patch_size=32)
+    torch.manual_seed(1)
+    mods = pretrain.make_isd_modules(
+        net_factory("unet", class_num=nc, dropout=(0.0,) * 5), nc,
+        latent_feature_size=64, output_pooling_size=4)
+    state = pretrain.init_pretrain_state(mods, cfg, (2, 1, hw, hw), seed=1,
+                                         device=device, compute_dtype=dtype)
+    cpu_state = pretrain.init_pretrain_state(
+        pretrain.make_isd_modules(net_factory("unet", class_num=nc,
+                                              dropout=(0.0,) * 5), nc,
+                                  latent_feature_size=64,
+                                  output_pooling_size=4),
+        cfg, (2, 1, hw, hw), seed=1, device="cpu")
+    state.queue.copy_(cpu_state.queue)
+    state.queue_mask.copy_(cpu_state.queue_mask)
+    step = pretrain.make_pretrain_step(cfg, 1, nc, 100, device=device)
+    gen = torch.Generator().manual_seed(2)
+    label = (torch.rand((2, hw, hw), generator=gen) * nc).to(torch.int32)
+    image = label[:, None].float() / (nc - 1) \
+        + 0.1 * torch.randn((2, 1, hw, hw), generator=gen)
+    return step(state, {"student_image": image, "teacher_image": image,
+                        "label": label})
+
+
+@pytest.mark.cuda
+def test_pretrain_step_on_the_card_matches_the_cpu(cuda):
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    want = _pretrain_step_on("cpu", torch.float32)
+    got = _pretrain_step_on(cuda, torch.bfloat16)
+    for k, w in want.items():
+        g = float(got[k])
+        assert abs(g - float(w)) <= 2e-2 + 5e-2 * abs(float(w)), k
+
+
+def _stage2_step_on_card(cuda, remat):
+    cfg = ArcoConfig(K=4, num_queries=32, num_negatives=64,
+                     memobank_size=256, memobank_size_bg=512,
+                     memobank_enqueue=64, topk=2, remat=remat)
+    torch.manual_seed(1)
+    mods = arco2d.make_arco_modules(net_factory("unet", class_num=4), 64, 64,
+                                    batch_size=2)
+    state = arco2d.init_arco_state(mods, cfg, (2, 1, 64, 64), seed=1,
+                                   device=cuda)
+    step = arco2d.make_arco_step(mods, cfg, num_classes=4,
+                                 max_iterations=100, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    label = (torch.rand((2, 64, 64), generator=gen, device=cuda) * 4).to(
+        torch.int32)
+    batch = {"image_l": label[:, None].float() / 3, "label_l": label,
+             "image_u": torch.rand((2, 1, 64, 64), generator=gen,
+                                   device=cuda)}
+    return state, step(state, batch)
+
+
+@pytest.mark.cuda
+def test_remat_on_the_card_matches_remat_off(cuda):
+    (a, ma), (b, mb) = (_stage2_step_on_card(cuda, r) for r in (False, True))
+    for k in ma:
+        if ma[k].ndim == 0:
+            torch.testing.assert_close(mb[k], ma[k], rtol=1e-3, atol=1e-6)
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    for k in sa:
+        if "running" in k:
+            torch.testing.assert_close(sb[k], sa[k], rtol=1e-3, atol=1e-6)
+        elif "num_batches" in k:
+            assert torch.equal(sb[k], sa[k])

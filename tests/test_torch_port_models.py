@@ -23,7 +23,7 @@ from arco_tpu.models.unet2d import UNet as JaxUNet
 
 from arco_torch.compat.from_flax import (
     feature_extractor_state_dict_from_flax,
-    q_representation_state_dict_from_flax, unet_state_dict_from_flax)
+    head_state_dict_from_flax, unet_state_dict_from_flax)
 from arco_torch.models import heads, layers, net_factory
 
 torch.set_num_threads(1)
@@ -181,7 +181,7 @@ def test_heads_composed_kernel_form():
     fe.load_state_dict(feature_extractor_state_dict_from_flax(
         _np(vfe["params"])))
     qr = heads.QRepresentation(out)
-    qr.load_state_dict(q_representation_state_dict_from_flax(
+    qr.load_state_dict(head_state_dict_from_flax(
         _np(vqr["params"])))
     t_fused = fe([_nchw(m) for m in maps])
     t_rep = qr(t_fused)

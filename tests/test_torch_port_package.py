@@ -9,11 +9,11 @@ import pytest
 import torch
 
 from arco_torch import resolve_device
-from arco_torch.cli import test_2d, train_arco_2d
-from arco_torch.config import ArcoConfig
+from arco_torch.cli import pretrain_2d, test_2d, train_arco_2d
+from arco_torch.config import ArcoConfig, ISDConfig
 from arco_torch.data.device_bank import DeviceSliceBank
 from arco_torch.models import net_factory
-from arco_torch.train import arco2d
+from arco_torch.train import arco2d, pretrain
 
 torch.set_num_threads(1)
 
@@ -66,3 +66,18 @@ def test_cuda_entry_points_raise_without_a_gpu():
         train_arco_2d.main(["--root_path", "/nonexistent"])
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         test_2d.main(["--root_path", "/nonexistent"])
+
+
+def test_pretrain_entry_points_raise_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    mods = pretrain.make_isd_modules(net_factory("unet", class_num=4), 4,
+                                     latent_feature_size=8,
+                                     output_pooling_size=2)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        pretrain.init_pretrain_state(mods, ISDConfig(K=2, patch_size=16),
+                                     (1, 1, 32, 32))
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        pretrain.make_pretrain_step(ISDConfig(), 1, 4, 10)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        pretrain_2d.main(["--root_path", "/nonexistent"])

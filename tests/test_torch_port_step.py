@@ -40,7 +40,7 @@ from arco_tpu.train.schedule import make_optimizer as jax_make_optimizer
 from arco_torch.augment.tps import RandTPS
 from arco_torch.compat.from_flax import (
     feature_extractor_state_dict_from_flax, load_flax_arco_state,
-    q_representation_state_dict_from_flax, unet_state_dict_from_flax)
+    head_state_dict_from_flax, unet_state_dict_from_flax)
 from arco_torch.config import ArcoConfig, OptimConfig
 from arco_torch.models.unet2d import UNet
 from arco_torch.train import arco2d
@@ -223,7 +223,7 @@ def test_heads_and_feature_ema(one_step_each):
                    feature_extractor_state_dict_from_flax(
                        ja["params"]["feature_extractor"]), **STATE_TOL)
     _assert_module(state.q_representation,
-                   q_representation_state_dict_from_flax(
+                   head_state_dict_from_flax(
                        ja["params"]["q_representation"]), **STATE_TOL)
     _assert_module(state.k_feature_extractor,
                    feature_extractor_state_dict_from_flax(
