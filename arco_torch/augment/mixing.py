@@ -1,10 +1,13 @@
 """Cutout / CutMix / ClassMix as mask arithmetic (counterpart of
-arco_tpu/augment/mixing.py, 2D).
+arco_tpu/augment/mixing.py).
 
-Images are NCHW; targets and confidences [B, H, W]. The random draws are
-explicit: cutout/cutmix take ``boxes`` [B, 3] int (rw, x0, y0) per sample,
-classmix takes ``scores`` [B, num_classes] uniforms. When not given they
-are drawn from ``generator`` with the JAX version's ranges.
+Images are NCHW or NCDHW ([B, C, X, Y, Z] on the 3D path); targets and
+confidences [B, *spatial]. The random draws are explicit: cutout/cutmix
+take ``boxes`` [B, 3] int (rw, x0, y0) per sample in 2D, [B, 5] (rw, x0,
+y0, zl, z0) in 3D, where the 2D rectangle spans the first two spatial dims
+and a slab of depth zl from z0 the third (augment_3d.py:182-207); classmix
+takes ``scores`` [B, num_classes] uniforms. When not given they are drawn
+from ``generator`` with the JAX version's ranges.
 """
 
 from __future__ import annotations
@@ -12,20 +15,33 @@ from __future__ import annotations
 import torch
 
 
+def _slab_depths(d: int):
+    """The z-slab depth range [lo, hi) of the 3D cutout: depth//8 ..
+    depth//4 (the reference's 10 .. 20 at depth 80)."""
+    return max(d // 8, 1), max(d // 4, 2)
+
+
 def draw_cutout_boxes(b: int, img_size, ratio: float = 2.0, generator=None,
                       device="cpu"):
     """[B, 3] (rw, x0, y0): rw ~ U{int(w/ratio)+1 .. w-1}, the rectangle's
     height rh = min(round(h*w/ratio / rw), h), x0 ~ U{0 .. w-rw}, y0 ~
-    U{0 .. h-rh} (augment.py:230-244)."""
-    h, w = img_size
+    U{0 .. h-rh} (augment.py:230-244). For a 3-D ``img_size`` (h, w, d),
+    [B, 5] with the slab's zl ~ U{d//8 .. d//4 - 1} and z0 ~ U{0 .. d-zl}
+    appended."""
+    h, w = img_size[:2]
     lo = int(w / ratio) + 1
     rw = torch.randint(lo, w, (b,), generator=generator, device=device)
     rh = _cutout_height(rw, h, w, ratio)
-    x0 = (torch.rand(b, generator=generator, device=device)
-          * (w - rw + 1)).long()
-    y0 = (torch.rand(b, generator=generator, device=device)
-          * (h - rh + 1)).long()
-    return torch.stack([rw, x0, y0], dim=1)
+    u = lambda: torch.rand(b, generator=generator, device=device)
+    x0 = (u() * (w - rw + 1)).long()
+    y0 = (u() * (h - rh + 1)).long()
+    cols = [rw, x0, y0]
+    if len(img_size) == 3:
+        d = img_size[2]
+        zl = torch.randint(*_slab_depths(d), (b,), generator=generator,
+                           device=device)
+        cols += [zl, (u() * (d - zl + 1)).long()]
+    return torch.stack(cols, dim=1)
 
 
 def _cutout_height(rw, h, w, ratio):
@@ -33,13 +49,20 @@ def _cutout_height(rw, h, w, ratio):
 
 
 def generate_cutout_mask(boxes, img_size, ratio: float = 2.0):
-    """[B, H, W] float masks: 0 inside each sample's rectangle, 1 outside."""
-    h, w = img_size
-    rw, x0, y0 = (boxes[:, i, None, None] for i in range(3))
+    """[B, *img_size] float masks: 0 inside each sample's rectangle (and,
+    in 3D, its z-slab), 1 outside."""
+    h, w = img_size[:2]
+    nd = len(img_size)
+    col = lambda i: boxes[:, i].reshape((-1,) + (1,) * nd)
+    axis = lambda n, dim: torch.arange(n, device=boxes.device).reshape(
+        [1] + [n if k == dim else 1 for k in range(nd)])
+    rw, x0, y0 = col(0), col(1), col(2)
     rh = _cutout_height(rw, h, w, ratio)
-    ys = torch.arange(h, device=boxes.device)[None, :, None]
-    xs = torch.arange(w, device=boxes.device)[None, None, :]
+    ys, xs = axis(h, 0), axis(w, 1)
     inside = (ys >= y0) & (ys < y0 + rh) & (xs >= x0) & (xs < x0 + rw)
+    if nd == 3:
+        zl, z0, zs = col(3), col(4), axis(img_size[2], 2)
+        inside = inside & (zs >= z0) & (zs < z0 + zl)
     return torch.where(inside, 0.0, 1.0)
 
 

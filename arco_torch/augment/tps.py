@@ -1,5 +1,4 @@
-"""Thin-plate-spline random warps (counterpart of arco_tpu/augment/tps.py,
-2D).
+"""Thin-plate-spline random warps (counterpart of arco_tpu/augment/tps.py).
 
 ``TPSGridGen`` is the same deterministic numpy solve as the JAX version
 (a copy, not an import). ``RandTPS.reset`` takes its draws explicitly: the
@@ -137,7 +136,8 @@ def make_rand_tps_grid(draws: dict, gridgen: TPSGridGen,
 
 class RandTPS:
     """Random TPS warps: ``grid = tps.reset(draws)``; ``tps.apply(x, grid)``
-    on NCHW images."""
+    on NCHW images, or on NCDHW volumes [B, C, H, W, D], where the same 2D
+    grid warps every depth slice (rand_tps_3d.py:147-167)."""
 
     def __init__(self, width: int, height: int, batch_size: int,
                  sigma: float = 0.01, border_padding: bool = False,
@@ -162,6 +162,13 @@ class RandTPS:
 
     def apply(self, x: torch.Tensor, grid: torch.Tensor,
               padding_mode: str | None = None, mode: str = "bilinear"):
-        return grid_sample_2d(x, grid, mode=mode,
-                              padding_mode=padding_mode or self.padding_mode,
-                              align_corners=True)
+        sample = lambda t: grid_sample_2d(
+            t, grid, mode=mode, padding_mode=padding_mode or self.padding_mode,
+            align_corners=True)
+        if x.ndim == 4:
+            return sample(x)
+        # 3D: depth folded into the channels, one 2D gather for all slices
+        # (the z coordinate is the identity), as the JAX version does
+        b, c, h, w, d = x.shape
+        out = sample(x.permute(0, 1, 4, 2, 3).reshape(b, c * d, h, w))
+        return out.reshape(b, c, d, *out.shape[2:]).permute(0, 1, 3, 4, 2)

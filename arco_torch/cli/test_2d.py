@@ -15,6 +15,7 @@ import json
 import os
 
 import numpy as np
+import torch
 
 from arco_torch import resolve_device
 from arco_torch.data.datasets import SliceDataset
@@ -53,6 +54,9 @@ def build_parser():
 def main(argv=None):
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
+    # the f32 forward of training: no TF32 in convolutions or matmuls
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     snapshot = os.path.join(
         args.snapshot_dir, f"{args.exp}_{args.labeled_num}_labeledfinal",

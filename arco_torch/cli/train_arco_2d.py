@@ -23,6 +23,7 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 from arco_torch import resolve_device
@@ -59,11 +60,12 @@ def build_datasets(cfg: TrainConfig):
 
 
 def _nchw_host_batches(pipeline):
-    """The host pipeline's batches with NCHW images, for the Prefetcher."""
+    """The host pipeline's batches with channels-first images (NCHW or
+    NCDHW), for the Prefetcher."""
     for b in pipeline:
-        yield {"image_l": b["image_l"].transpose(0, 3, 1, 2),
+        yield {"image_l": np.moveaxis(b["image_l"], -1, 1),
                "label_l": b["label_l"],
-               "image_u": b["image_u"].transpose(0, 3, 1, 2)}
+               "image_u": np.moveaxis(b["image_u"], -1, 1)}
 
 
 def _batches(cfg: TrainConfig, ds_l, ds_u, device):
@@ -83,12 +85,18 @@ def _batches(cfg: TrainConfig, ds_l, ds_u, device):
                          len(ds_l), len(ds_u), device)
             return two_stream_device_batches(
                 banks[0], banks[1], b_l, bs - b_l, cfg.seed), None
-    pipeline = TwoStreamPipeline(ds_l, ds_u, bs, seed=cfg.seed,
-                                 labeled_bs=b_l)
+    return host_batches(cfg, ds_l, ds_u, device)
+
+
+def host_batches(cfg: TrainConfig, ds_l, ds_u, device):
+    """(batches of the host pipeline on ``device``, the pipeline)."""
+    pipeline = TwoStreamPipeline(ds_l, ds_u, cfg.data.batch_size,
+                                 seed=cfg.seed, labeled_bs=cfg.data.labeled_bs)
     return iter(Prefetcher(_nchw_host_batches(pipeline), device)), pipeline
 
 
-def train(cfg: TrainConfig, snapshot_path: str):
+def start_run(cfg: TrainConfig, snapshot_path: str) -> torch.device:
+    """The run's device, its log.txt, and TF32 off."""
     device = resolve_device(cfg.device)
     os.makedirs(snapshot_path, exist_ok=True)
     logging.basicConfig(
@@ -108,40 +116,28 @@ def train(cfg: TrainConfig, snapshot_path: str):
     logging.info("device %s; cudnn.allow_tf32=%s, matmul.allow_tf32=%s",
                  device, torch.backends.cudnn.allow_tf32,
                  torch.backends.cuda.matmul.allow_tf32)
+    return device
 
-    num_classes = cfg.data.num_classes
-    h, w = cfg.data.patch_size
-    # reference batch semantics: batch_size is the TOTAL per-step batch,
-    # labeled_bs of it labeled (train_arco_2d.py:35-36)
-    bs = cfg.data.batch_size
-    b_l = cfg.data.labeled_bs
-    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" \
-        else torch.float32
 
-    torch.manual_seed(cfg.seed)       # the module weights
-    model = net_factory(cfg.model, in_chns=cfg.data.in_channels,
-                        class_num=num_classes)
-    # stage-1 handoff (train_arco_2d.py:223-226): student and teacher start
-    # from the resumed experiment's newest iter_<N> weights
-    if cfg.resume:
-        resume_dir = os.path.join(
-            cfg.snapshot_dir,
-            f"{cfg.resume}_{cfg.data.labeled_num}_labeledfinal", cfg.model)
-        step = ckpt.latest_step(resume_dir)
-        if step is not None:
-            logging.info("loading stage-1 checkpoint iter_%d from %s", step,
-                         resume_dir)
-            model.load_state_dict(ckpt.load_model_params(resume_dir, step))
-    modules = make_arco_modules(model, w, h, batch_size=b_l, total_batch=bs,
-                                tps_sigma=cfg.arco.tps_sigma)
-    state = init_arco_state(modules, cfg.arco,
-                            (b_l, cfg.data.in_channels, h, w), cfg.optim,
-                            seed=cfg.seed, device=device,
-                            compute_dtype=dtype)
+def load_stage1(cfg: TrainConfig, model):
+    """Stage-1 handoff (train_arco_2d.py:223-226): student and teacher
+    start from the resumed experiment's newest iter_<N> weights."""
+    if not cfg.resume:
+        return
+    resume_dir = os.path.join(
+        cfg.snapshot_dir, f"{cfg.resume}_{cfg.data.labeled_num}_labeledfinal",
+        cfg.model)
+    step = ckpt.latest_step(resume_dir)
+    if step is not None:
+        logging.info("loading stage-1 checkpoint iter_%d from %s", step,
+                     resume_dir)
+        model.load_state_dict(ckpt.load_model_params(resume_dir, step))
 
-    # crash recovery: the full state (weights, EMA, optimizer, step,
-    # generator) from this experiment's newest full_iter_<N>; else a
-    # degraded resume from its newest iter_<N> weights
+
+def resume_own(cfg: TrainConfig, snapshot_path: str, state):
+    """Crash recovery: the full state (weights, EMA, optimizer, step,
+    generator) from this experiment's newest full_iter_<N>; else a degraded
+    resume from its newest iter_<N> weights."""
     own_step = ckpt.latest_full_step(snapshot_path)
     if own_step:
         logging.info("resuming full train state from full_iter_%d", own_step)
@@ -151,14 +147,17 @@ def train(cfg: TrainConfig, snapshot_path: str):
         logging.info("degraded resume from model checkpoint iter_%d", mstep)
         ckpt.restore_model_fallback(snapshot_path, mstep, state, cfg.optim)
 
-    step_fn = make_arco_step(modules, cfg.arco, num_classes,
-                             cfg.optim.max_iterations, cfg.optim,
-                             output_size=cfg.data.patch_size, device=device)
 
-    ds_l, ds_u = build_datasets(cfg)
-    batches, pipeline = _batches(cfg, ds_l, ds_u, device)
+def run_loop(cfg: TrainConfig, snapshot_path: str, state, batches,
+             step_for, unit: str = "img"):
+    """Train from ``state.step`` to ``cfg.optim.max_iterations``, with
+    ``step_for(it)`` the step function of iteration ``it``: log every
+    ``log_every`` ("images_per_sec" or, for ``unit`` "vol",
+    "volumes_per_sec"), checkpoint every ``ckpt_every``, and save the final
+    state."""
+    rate = "images_per_sec" if unit == "img" else "volumes_per_sec"
+    bs, b_l = cfg.data.batch_size, cfg.data.labeled_bs
     logger = MetricLogger(snapshot_path)
-
     t0 = time.time()
     start_it = state.step
     # record.pkl parity incl. resume (train_arco_2d.py:437,477-478): the
@@ -169,25 +168,26 @@ def train(cfg: TrainConfig, snapshot_path: str):
         batches = iter(())
     try:
         for it, batch in enumerate(batches, start=start_it + 1):
-            metrics = step_fn(state, batch)
+            metrics = step_for(it)(state, batch)
             pred_l_label = metrics.pop("pred_l_label")
             pending.append(metrics["loss"])
             if it % cfg.log_every == 0:
                 # all the terms in one copy to the host
                 metrics = dict(zip(metrics, torch.stack(
                     [v.float() for v in metrics.values()]).tolist()))
-                ips = cfg.log_every * bs / (time.time() - t0)
+                per_s = cfg.log_every * bs / (time.time() - t0)
                 t0 = time.time()
-                logger.log(it, {**metrics, "images_per_sec": ips})
+                logger.log(it, {**metrics, rate: per_s})
                 logging.info(
                     "iteration %d : loss : %f, loss_ce: %f, loss_dice: %f, "
                     "reco_loss: %f, unsup_loss: %f, loss_eqv: %f "
-                    "(%.1f img/s)", it, metrics["loss"], metrics["loss_ce"],
+                    "(%.2f %s/s)", it, metrics["loss"], metrics["loss_ce"],
                     metrics["loss_dice"], metrics["reco_loss"],
-                    metrics["unsup_loss"], metrics["loss_eqv"], ips)
-            if logger.tb is not None and it % (cfg.log_every * 10) == 0:
-                # TB image grids, sample index 1 as in the reference
-                # (train_arco_2d.py:441-459)
+                    metrics["unsup_loss"], metrics["loss_eqv"], per_s, unit)
+            if logger.tb is not None and it % (cfg.log_every * 10) == 0 \
+                    and pred_l_label.ndim == 3:
+                # TB image grids of 2D runs, sample index 1 as in the
+                # reference (train_arco_2d.py:441-459)
                 idx = min(1, b_l - 1)
                 logger.log_images(it, {
                     "train/Image": batch["image_l"][idx, 0].cpu().numpy(),
@@ -212,9 +212,42 @@ def train(cfg: TrainConfig, snapshot_path: str):
         loss_history.extend(_flush(pending))
         logger.log_history_pickle(snapshot_path, loss_history)
     finally:
+        logger.close()
+
+
+def train(cfg: TrainConfig, snapshot_path: str):
+    device = start_run(cfg, snapshot_path)
+    num_classes = cfg.data.num_classes
+    h, w = cfg.data.patch_size
+    # reference batch semantics: batch_size is the TOTAL per-step batch,
+    # labeled_bs of it labeled (train_arco_2d.py:35-36)
+    bs = cfg.data.batch_size
+    b_l = cfg.data.labeled_bs
+    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" \
+        else torch.float32
+
+    torch.manual_seed(cfg.seed)       # the module weights
+    model = net_factory(cfg.model, in_chns=cfg.data.in_channels,
+                        class_num=num_classes)
+    load_stage1(cfg, model)
+    modules = make_arco_modules(model, w, h, batch_size=b_l, total_batch=bs,
+                                tps_sigma=cfg.arco.tps_sigma)
+    state = init_arco_state(modules, cfg.arco,
+                            (b_l, cfg.data.in_channels, h, w), cfg.optim,
+                            seed=cfg.seed, device=device,
+                            compute_dtype=dtype)
+    resume_own(cfg, snapshot_path, state)
+    step_fn = make_arco_step(modules, cfg.arco, num_classes,
+                             cfg.optim.max_iterations, cfg.optim,
+                             output_size=cfg.data.patch_size, device=device)
+
+    ds_l, ds_u = build_datasets(cfg)
+    batches, pipeline = _batches(cfg, ds_l, ds_u, device)
+    try:
+        run_loop(cfg, snapshot_path, state, batches, lambda it: step_fn)
+    finally:
         if pipeline is not None:
             pipeline.close()
-        logger.close()
     return "Training Finished!"
 
 

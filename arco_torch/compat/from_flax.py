@@ -6,13 +6,19 @@ bank as ``{"data", "ptr", "count"}``). This inverts arco_tpu/compat/torch_import
 (convert_unet_state_dict, convert_feature_extractor_state_dict,
 convert_q_representation_state_dict) without importing it:
 
-- conv kernels [kh, kw, in, out] -> [out, in, kh, kw];
+- conv kernels [*k, in, out] -> [out, in, *k] (2D and 3D);
+- transposed-conv kernels [*k, in, out] -> [in, out, *k] flipped in every
+  spatial dim (flax places an unflipped kernel, torch's transposed conv is
+  the gradient of a conv: the inverse of torch_import's ``_convT3d``);
 - Dense kernels [in, out] -> Linear weights [out, in];
 - a stacked head's ``Conv_{i}`` / ``Dense_{i}`` -> its layer ``{i}``;
 - BatchNorm scale/bias + batch_stats mean/var -> weight/bias +
   running_mean/running_var;
-- the random pool [K, H, W, C] is already the port's layout (channels-last
-  reps, see models/heads.py) and is copied as it is.
+- the random pool [K, *spatial, C] is already the port's layout
+  (channels-last reps, see models/heads.py) and is copied as it is.
+
+The stage-2 model is the 2D U-Net or the 3D V-Net (module names of
+models/unet2d.py and models/vnet3d.py), told apart by the flax tree.
 """
 
 from __future__ import annotations
@@ -26,10 +32,24 @@ def _t(x):
 
 
 def _conv(p):
-    out = {"weight": _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))}
+    k = np.asarray(p["kernel"])
+    nd = k.ndim - 2
+    out = {"weight": _t(k.transpose((nd + 1, nd) + tuple(range(nd))))}
     if "bias" in p:
         out["bias"] = _t(p["bias"])
     return out
+
+
+def _conv_transpose(p):
+    k = np.asarray(p["kernel"])
+    nd = k.ndim - 2
+    k = np.flip(k, axis=tuple(range(nd)))
+    return {"weight": _t(k.transpose((nd, nd + 1) + tuple(range(nd)))),
+            "bias": _t(p["bias"])}
+
+
+def _put(sd, prefix, layer):
+    sd.update({f"{prefix}.{k}": v for k, v in layer.items()})
 
 
 def _bn(p, s):
@@ -69,6 +89,43 @@ def unet_state_dict_from_flax(params, batch_stats) -> dict:
     return sd
 
 
+_VNET_NAMES = ("one", "two", "three", "four", "five", "six", "seven",
+               "eight", "nine")
+
+
+def vnet_state_dict_from_flax(params, batch_stats) -> dict:
+    """flax VNet (params, batch_stats) -> state_dict of models.vnet3d.VNet
+    (the reference module names; inverse of torch_import's
+    convert_vnet_state_dict)."""
+    sd = {}
+    for i, name in enumerate(_VNET_NAMES):
+        p, s = params[f"VNetConvBlock_{i}"], batch_stats[f"VNetConvBlock_{i}"]
+        for j in range(sum(1 for k in p if k.startswith("ConvBNAct_"))):
+            cp, cs = p[f"ConvBNAct_{j}"], s[f"ConvBNAct_{j}"]
+            _put(sd, f"block_{name}.conv.{3 * j}", _conv(cp["Conv_0"]))
+            _put(sd, f"block_{name}.conv.{3 * j + 1}",
+                 _bn(cp["BatchNorm_0"], cs["BatchNorm_0"]))
+    for kind, names, conv in (
+            ("DownBlock", _VNET_NAMES[:4], lambda p: _conv(p["Conv_0"])),
+            ("UpBlock", _VNET_NAMES[4:8], lambda p: _conv_transpose(
+                p["ConvTransposeUp_0"]["ConvTranspose_0"]))):
+        suffix = "dw" if kind == "DownBlock" else "up"
+        for i, name in enumerate(names):
+            p, s = params[f"{kind}_{i}"], batch_stats[f"{kind}_{i}"]
+            _put(sd, f"block_{name}_{suffix}.conv.0", conv(p))
+            _put(sd, f"block_{name}_{suffix}.conv.1",
+                 _bn(p["BatchNorm_0"], s["BatchNorm_0"]))
+    _put(sd, "out_conv", _conv(params["Conv_0"]))
+    return sd
+
+
+def model_state_dict_from_flax(params, batch_stats) -> dict:
+    """The stage-2 model's state_dict: U-Net or V-Net by the flax tree."""
+    if "VNetConvBlock_0" in params:
+        return vnet_state_dict_from_flax(params, batch_stats)
+    return unet_state_dict_from_flax(params, batch_stats)
+
+
 def feature_extractor_state_dict_from_flax(params) -> dict:
     return {f"{name}.weight": _conv(p)["weight"]
             for name, p in params.items()}
@@ -91,15 +148,15 @@ def head_state_dict_from_flax(params) -> dict:
 
 @torch.no_grad()
 def load_flax_arco_state(state, flax_state: dict):
-    """Copy a JAX ArcoState (numpy, as ``{"params", "batch_stats",
-    "ema_params", "ema_batch_stats", "k_feature_params", "memobank",
-    "random_pool", "random_pool_ptr", "step"}``) into the port's
+    """Copy a JAX ArcoState, 2D or 3D (numpy, as ``{"params",
+    "batch_stats", "ema_params", "ema_batch_stats", "k_feature_params",
+    "memobank", "random_pool", "random_pool_ptr", "step"}``) into the port's
     ``train.arco2d.ArcoState`` in place. The optimizer's momentum is not
     carried (a fresh JAX state has a zero trace, as a fresh SGD has none)."""
     params = flax_state["params"]
-    state.model.load_state_dict(unet_state_dict_from_flax(
+    state.model.load_state_dict(model_state_dict_from_flax(
         params["model"], flax_state["batch_stats"]["model"]))
-    state.ema_model.load_state_dict(unet_state_dict_from_flax(
+    state.ema_model.load_state_dict(model_state_dict_from_flax(
         flax_state["ema_params"]["model"],
         flax_state["ema_batch_stats"]["model"]))
     state.feature_extractor.load_state_dict(

@@ -1,5 +1,5 @@
-"""Device-resident 2D slice bank (counterpart of
-arco_tpu/data/device_bank.py, its 2D part).
+"""Device-resident training data (counterpart of
+arco_tpu/data/device_bank.py): the 2D slice bank and the 3D volume bank.
 
 The whole training slice set is staged on the device once: slices as f32,
 labels as int8. The zoom to the output size runs on the host at staging
@@ -10,6 +10,12 @@ pixel permutations with a validity mask, built once on the host as a
 [49, H*W] index map; a batch is then one gather on the device. Per step
 only the [B, 5] int32 parameter array crosses from the host, and the
 batches are bit-identical to the host pipeline's for the same seed.
+
+The 3D volumes (LA) are staged on the device once, after the host padding
+rule of datasets.random_crop_3d; each sample's rot90, flip and crop then run
+there on the staged volume, driven by draws made on the host in the host
+pipeline's order, so nothing but launches crosses per step. They need one
+shape and a square plane (rot90 in the first two dims keeps the shape).
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import numpy as np
 import torch
 
 from arco_torch import resolve_device
+from arco_torch.data.datasets import pad_for_crop_3d
 
 ROT_ANGLES = np.arange(-20, 20)  # random_generator_2d's randint(-20, 20)
 # transform rows: 0 identity, 1 + 2k + axis rot90(k) then flip(axis),
@@ -143,13 +150,81 @@ class DeviceSliceBank:
         return img.reshape(b, 1, h, w), lab.to(torch.int32).reshape(b, h, w)
 
 
+class DeviceVolumeBank:
+    """Training volumes on the device, rotated, flipped and cropped there
+    (``draw_params`` on the host, ``gather`` on the device)."""
+
+    def __init__(self, images: np.ndarray, labels: np.ndarray, patch_size,
+                 device="cuda"):
+        if images.shape[1] != images.shape[2]:
+            raise ValueError(
+                f"in-plane shape must be square for device rot90, got "
+                f"{images.shape[1:]}")
+        self.device = resolve_device(device)
+        self.patch = tuple(patch_size)
+        self.shape = images.shape[1:]
+        self.images = torch.from_numpy(
+            np.ascontiguousarray(images, np.float32)).to(self.device)
+        self.labels = torch.from_numpy(
+            np.ascontiguousarray(labels, np.int8)).to(self.device)
+
+    def __len__(self):
+        return self.images.shape[0]
+
+    @classmethod
+    def from_dataset(cls, dataset, patch_size,
+                     device="cuda") -> "DeviceVolumeBank":
+        """dataset: exposes __len__ and load(i) -> (image, label) numpy
+        [W, H, D] (datasets.LAHeartDataset, InMemoryVolumes)."""
+        vols, labs = [], []
+        for i in range(len(dataset)):
+            img, lab = pad_for_crop_3d(*dataset.load(i), patch_size)
+            vols.append(img.astype(np.float32))
+            labs.append(lab.astype(np.int8))
+        shapes = {v.shape for v in vols}
+        if len(shapes) != 1:
+            raise ValueError(
+                f"device bank needs uniform volume shapes, got {shapes}")
+        return cls(np.stack(vols), np.stack(labs), patch_size, device)
+
+    def draw_params(self, rng: np.random.RandomState, idxs) -> np.ndarray:
+        """[B, 6] int32 (vol, k, axis, w1, h1, d1). Consumes ``rng`` exactly
+        as the host path does (random_rot_flip_3d, then random_crop_3d)."""
+        w, h, d = self.shape
+        ow, oh, od = self.patch
+        rows = []
+        for i in idxs:
+            k = rng.randint(0, 4)
+            axis = rng.randint(0, 2)
+            # rot90 in (0, 1) of a square plane keeps (w, h)
+            w1 = rng.randint(0, w - ow + 1)
+            h1 = rng.randint(0, h - oh + 1)
+            d1 = rng.randint(0, d - od + 1)
+            rows.append((int(i), k, axis, w1, h1, d1))
+        return np.asarray(rows, np.int32)
+
+    def gather(self, params: np.ndarray):
+        """[B, 6] int32 -> (images [B, 1, *patch] f32, labels [B, *patch]
+        int32), both on the device. The parameters stay on the host: each
+        sample is a rot90, a flip and a crop of its staged volume."""
+        ow, oh, od = self.patch
+        imgs, labs = [], []
+        for vol, k, axis, w1, h1, d1 in params.tolist():
+            crop = np.s_[w1:w1 + ow, h1:h1 + oh, d1:d1 + od]
+            for src, out in ((self.images, imgs), (self.labels, labs)):
+                v = torch.flip(torch.rot90(src[vol], k, (0, 1)), (axis,))
+                out.append(v[crop])
+        return (torch.stack(imgs)[:, None],
+                torch.stack(labs).to(torch.int32))
+
+
 def two_stream_device_batches(bank_l, bank_u, bs_l: int, bs_u: int,
                               seed: int):
     """Endless {image_l, label_l, image_u} batches on the device from two
-    banks, reproducing TwoStreamPipeline's single-worker RandomState stream
-    exactly (worker rng = RandomState(seed + 1000 * 0); per batch: labeled
-    indices, unlabeled indices, then the per-sample transform draws,
-    labeled first)."""
+    slice or volume banks, reproducing TwoStreamPipeline's single-worker
+    RandomState stream exactly (worker rng = RandomState(seed + 1000 * 0);
+    per batch: labeled indices, unlabeled indices, then the per-sample
+    transform draws, labeled first)."""
     rng = np.random.RandomState(seed + 1000 * 0)
     n_l, n_u = len(bank_l), len(bank_u)
     while True:

@@ -1,10 +1,11 @@
-"""Synthetic 2D datasets for tests and smoke runs (counterpart of
-arco_tpu/data/synthetic.py, its 2D part).
+"""Synthetic datasets for tests and smoke runs (counterpart of
+arco_tpu/data/synthetic.py).
 
-``make_acdc_like`` writes the ACDC layout (h5 slices and volumes) from the
-same ``RandomState`` stream as the JAX version, so both packages read the
-same tree. ``make_synapse_like`` writes the Synapse npz layout, which needs
-no h5py.
+``make_acdc_like`` writes the ACDC layout (h5 slices and volumes) and
+``make_la_like`` the LA layout (h5 volumes) from the same ``RandomState``
+stream as the JAX version, so both packages read the same tree.
+``make_synapse_like`` writes the Synapse npz layout, which needs no h5py;
+``la_volume`` makes one LA-like volume in memory.
 """
 
 from __future__ import annotations
@@ -94,4 +95,39 @@ def make_synapse_like(root: str, n_train: int = 64, size=(256, 256),
         cases.append(case)
     with open(os.path.join(root, "train.txt"), "w") as f:
         f.write("\n".join(cases) + "\n")
+    return root
+
+
+def la_volume(rng, size=(48, 48, 32)):
+    """(image f32, label uint8) [W, H, D]: one sphere phantom of label 1
+    plus noise, as make_la_like draws it."""
+    h, w, d = size
+    label = np.zeros(size, np.uint8)
+    cy, cx, cz = (rng.randint(h // 4, 3 * h // 4),
+                  rng.randint(w // 4, 3 * w // 4),
+                  rng.randint(d // 4, 3 * d // 4))
+    r = rng.randint(min(size) // 8, min(size) // 4)
+    yy, xx, zz = np.mgrid[0:h, 0:w, 0:d]
+    label[(yy - cy) ** 2 + (xx - cx) ** 2 + (zz - cz) ** 2 < r * r] = 1
+    image = (label.astype(np.float32)
+             + 0.2 * rng.randn(*size).astype(np.float32))
+    return image, label
+
+
+def make_la_like(root: str, n_train: int = 8, size=(48, 48, 32),
+                 seed: int = 0):
+    """LA layout: <root>/train.list + <case>/mri_norm2.h5 volumes; the
+    first two cases are the test.list."""
+    rng = np.random.RandomState(seed)
+    cases = []
+    for i in range(n_train):
+        case = f"la_case_{i:03d}"
+        os.makedirs(os.path.join(root, case), exist_ok=True)
+        _write_h5(os.path.join(root, case, "mri_norm2.h5"),
+                  *la_volume(rng, size))
+        cases.append(case)
+    with open(os.path.join(root, "train.list"), "w") as f:
+        f.write("\n".join(cases) + "\n")
+    with open(os.path.join(root, "test.list"), "w") as f:
+        f.write("\n".join(cases[:2]) + "\n")
     return root

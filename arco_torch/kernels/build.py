@@ -36,8 +36,7 @@ _SIGNATURES = {
     "arco_infonce_group": (_I, []),
     "arco_infonce_splits": (_I, []),
     "arco_pool_sims": (_I, [_P, _P, _P, _P, _I, _I, _LL, _P]),
-    "arco_pool_sims_chunk": (_I, []),
-    "arco_pool_sims_max_b": (_I, []),
+    "arco_pool_sims_chunk": (_I, [_I]),
 }
 
 _lib = None

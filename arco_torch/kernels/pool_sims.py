@@ -30,7 +30,9 @@ def pool_similarities_plain(queries, pool, chunk: int = 1 << 20):
 
 
 def pool_similarities(queries, pool):
-    """queries [B, F], pool [K, F] -> [B, K] f32 (bf16 inputs on CUDA)."""
+    """queries [B, F], pool [K, F] -> [B, K] f32 (bf16 inputs on CUDA).
+    Any B: up to 16 query rows share one pass over the pool, more go in
+    groups of 16 (csrc/pool_sims.cu)."""
     if queries.device.type == "cpu":
         return pool_similarities_plain(queries, pool)
     if queries.device.type != "cuda":
@@ -45,13 +47,11 @@ def pool_similarities(queries, pool):
     lib = build.load_library()
     b, f = queries.shape
     k = pool.shape[0]
-    if pool.shape[1] != f or f % 8 or not 0 < b <= lib.arco_pool_sims_max_b():
+    if pool.shape[1] != f or f % 8 or b < 1:
         raise ValueError(f"queries {tuple(queries.shape)} / pool "
                          f"{tuple(pool.shape)}: F must match and be a "
-                         f"multiple of 8, B at most "
-                         f"{lib.arco_pool_sims_max_b()}")
-    chunk = lib.arco_pool_sims_chunk()
-    n_chunks = -(-f // chunk)
+                         f"multiple of 8, B at least 1")
+    n_chunks = -(-f // lib.arco_pool_sims_chunk(b))
     partial = torch.empty((n_chunks, b, k), dtype=torch.float32,
                           device=queries.device)
     out = torch.empty((b, k), dtype=torch.float32, device=queries.device)

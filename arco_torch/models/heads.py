@@ -4,11 +4,13 @@ Stage 2: FeatureExtractor, QRepresentation. Stage 1 (ISD): ProjectionHead,
 LatentMLP, LatentPredictor, OutputsPredictor; and RepresentationHead.
 
 The 1x1-conv heads compute as matrix products over the channel dim of
-channels-last [B, H, W, C] tensors: the fused representation comes out
-channels-last and contiguous, which is the layout the contrastive loss and
-the random pool flatten ([rows, C] and [B, H*W*C]) with no copy, and the
+channels-last [B, *spatial, C] tensors (2D or 3D): the fused representation
+comes out channels-last and contiguous, which is the layout the contrastive
+loss and the random pool flatten ([rows, C] and [B, prod(spatial)*C]) in
+JAX's raster order with no copy, and the
 ISD descriptors flatten each pooled cell in JAX's (h, w, c) order. Weights
-keep the reference's conv shapes ([out, in, 1, 1]; ``fea{i}.weight``);
+keep the reference's conv shapes ([out, in, 1, 1] or [out, in, 1, 1, 1]
+for ``nd=3``; ``fea{i}.weight``);
 the stacked heads name their layers by position (``{i}.weight``), as
 flax's ``Conv_{i}`` / ``Dense_{i}``.
 """
@@ -21,22 +23,24 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from arco_torch.models.layers import adaptive_avg_pool
+from arco_torch.models.layers import CONV, adaptive_avg_pool
 from arco_torch.ops.interpolate import resize_bilinear
 
 
 def _nhwc(x):
-    return x.permute(0, 2, 3, 1)
+    """[B, C, *spatial] -> channels-last [B, *spatial, C] (a view)."""
+    return x.movedim(1, -1)
 
 
 def _conv1x1(x, conv):
     """A 1x1 ``conv`` over the channel dim of channels-last ``x``."""
-    return F.linear(x, conv.weight[:, :, 0, 0], conv.bias)
+    return F.linear(x, conv.weight.flatten(1), conv.bias)
 
 
 def _resize_nhwc(z, size):
-    return _nhwc(resize_bilinear(z.permute(0, 3, 1, 2), size,
-                                 align_corners=True))
+    """Bi/trilinear resize (align_corners) of channels-last ``z``."""
+    return _nhwc(resize_bilinear(z.movedim(-1, 1), size, align_corners=True))
+
 
 
 class FeatureExtractor(nn.Module):
@@ -46,21 +50,23 @@ class FeatureExtractor(nn.Module):
     y = W4 [up(x_3); m_4] is channel-linear, so composing the kernels gives
     the same function as y = up(...up(m0 B0) + m1 B1 ...) + m4 B4 with small
     [c_i, out] matrices B_i (derivation in arco_tpu/models/heads.py).
-    Input: NCHW decoder maps coarse -> fine; output [B, H, W, output_dim]."""
+    Input: [B, C, *spatial] decoder maps coarse -> fine, ``nd`` spatial
+    dims; output [B, *spatial, output_dim]."""
 
     def __init__(self, fea_dim: Sequence[int] = (256, 128, 64, 32, 16),
-                 output_dim: int = 256):
+                 output_dim: int = 256, nd: int = 2):
         super().__init__()
         c = [int(d) for d in fea_dim]
         n = len(c)
         assert n >= 2
         d = [sum(c[:i + 1]) for i in range(n)]
         self.fea_dim, self.output_dim = c, output_dim
-        self.fea0 = nn.Conv2d(c[0], c[0], 1, bias=False)
+        conv = CONV[nd]
+        self.fea0 = conv(c[0], c[0], 1, bias=False)
         for i in range(1, n - 1):
-            setattr(self, f"fea{i}", nn.Conv2d(d[i], d[i], 1, bias=False))
+            setattr(self, f"fea{i}", conv(d[i], d[i], 1, bias=False))
         setattr(self, f"fea{n - 1}",
-                nn.Conv2d(d[n - 1], output_dim, 1, bias=False))
+                conv(d[n - 1], output_dim, 1, bias=False))
 
     def composed_kernels(self):
         """B_i [c_i, output_dim] in f32 (differentiable in the weights),
@@ -72,7 +78,7 @@ class FeatureExtractor(nn.Module):
         dev = self.fea0.weight.device
         with torch.autocast(dev.type, enabled=False):
             # K_i as [in, out] matrices, the flax kernel layout
-            K = [getattr(self, f"fea{i}").weight[:, :, 0, 0].float().t()
+            K = [getattr(self, f"fea{i}").weight.flatten(1).float().t()
                  for i in range(n)]
             eye = lambda m: torch.eye(m, dtype=torch.float32, device=dev)
             A = K[n - 1][:d[n - 2]]
@@ -90,7 +96,7 @@ class FeatureExtractor(nn.Module):
         dt = fea_list[0].dtype            # the compute dtype of the maps
         z = _nhwc(fea_list[0]).to(dt) @ B[0].to(dt)
         for f, b in zip(fea_list[1:], B[1:]):
-            z = _resize_nhwc(z, f.shape[2:])
+            z = _resize_nhwc(z, tuple(f.shape[2:]))
             z = z + _nhwc(f).to(dt) @ b.to(dt)
         return z
 
@@ -106,11 +112,13 @@ class _Conv1x1Stack(nn.Sequential):
 
 class QRepresentation(_Conv1x1Stack):
     """Two bias-free 1x1 convs over the fused channels-last map
-    (train_arco_2d.py:231-235)."""
+    (train_arco_2d.py:231-235, train_arco_3d.py:208-211)."""
 
-    def __init__(self, channels: int = 256 + 128 + 64 + 32 + 16):
-        super().__init__(nn.Conv2d(channels, channels, 1, bias=False),
-                         nn.Conv2d(channels, channels, 1, bias=False))
+    def __init__(self, channels: int = 256 + 128 + 64 + 32 + 16,
+                 nd: int = 2):
+        conv = CONV[nd]
+        super().__init__(conv(channels, channels, 1, bias=False),
+                         conv(channels, channels, 1, bias=False))
 
 
 class ProjectionHead(_Conv1x1Stack):

@@ -20,15 +20,16 @@ def leaky_relu(x):
     return F.leaky_relu(x, negative_slope=0.01)
 
 
-class BatchNorm2d(nn.BatchNorm2d):
-    """BatchNorm with flax's running-statistics rule.
+class _FlaxBatchNorm:
+    """BatchNorm with flax's running-statistics rule, for any rank.
 
     flax ``BatchNorm(momentum=0.9)`` is torch ``momentum=0.1``, eps 1e-5.
     flax also updates the running variance with the BIASED batch variance,
     where torch's own BatchNorm uses the unbiased one (n/(n-1) larger: 8/7
     at the 2x2 bottleneck of a 32² batch of 2), so the running update is
-    done here by hand. Normalization itself uses the batch statistics, as
-    both frameworks do in train mode."""
+    done here by hand, over every dim but the channels. Normalization
+    itself uses the batch statistics, as both frameworks do in train
+    mode."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -42,7 +43,8 @@ class BatchNorm2d(nn.BatchNorm2d):
                                 self.weight, self.bias, False, 0.0, self.eps)
         if self.update_stats:
             with torch.no_grad():
-                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                dims = (0,) + tuple(range(2, x.ndim))
+                var, mean = torch.var_mean(x.float(), dim=dims,
                                            correction=0)
                 self.running_mean.mul_(1 - self.momentum).add_(
                     mean, alpha=self.momentum)
@@ -52,11 +54,19 @@ class BatchNorm2d(nn.BatchNorm2d):
                             self.eps)
 
 
+class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm3d(_FlaxBatchNorm, nn.BatchNorm3d):
+    pass
+
+
 @contextlib.contextmanager
 def running_stats_frozen(module: nn.Module):
     """Train-mode forwards of ``module`` inside the block normalize with the
     batch statistics as usual but leave the running statistics alone."""
-    bns = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    bns = [m for m in module.modules() if isinstance(m, _FlaxBatchNorm)]
     for m in bns:
         m.update_stats = False
     try:
@@ -78,16 +88,34 @@ def dropout(x, p: float, mask=None, generator=None, training: bool = True):
                                                         device=x.device))
 
 
-class ConvBNAct(nn.Module):
-    """Conv 3x3 (same) -> BatchNorm -> LeakyReLU(0.01)."""
+CONV = {2: nn.Conv2d, 3: nn.Conv3d}          # by spatial rank
+_CONV_T = {2: nn.ConvTranspose2d, 3: nn.ConvTranspose3d}
+_BN = {2: BatchNorm2d, 3: BatchNorm3d}
 
-    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3):
+
+class ConvBNAct(nn.Module):
+    """Conv 3^nd (same) -> BatchNorm -> LeakyReLU(0.01) or ReLU, over
+    ``nd`` spatial dims."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, nd: int = 2,
+                 act: str = "leaky_relu"):
         super().__init__()
-        self.conv = nn.Conv2d(in_ch, out_ch, kernel, padding=kernel // 2)
-        self.bn = BatchNorm2d(out_ch)
+        if act not in ("leaky_relu", "relu"):
+            raise ValueError(act)
+        self.conv = CONV[nd](in_ch, out_ch, kernel, padding=kernel // 2)
+        self.bn = _BN[nd](out_ch)
+        self.act = act
 
     def forward(self, x):
-        return leaky_relu(self.bn(self.conv(x)))
+        x = self.bn(self.conv(x))
+        return leaky_relu(x) if self.act == "leaky_relu" else F.relu(x)
+
+
+def ConvTransposeUp(in_ch: int, out_ch: int, nd: int = 3):
+    """Transposed conv, kernel 2 and stride 2, over ``nd`` spatial dims
+    (counterpart of arco_tpu/models/layers.py:ConvTransposeUp; torch's
+    weight is flax's kernel flipped, see compat/from_flax.py)."""
+    return _CONV_T[nd](in_ch, out_ch, 2, stride=2)
 
 
 class ConvBlock2D(nn.Module):

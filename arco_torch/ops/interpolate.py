@@ -1,5 +1,5 @@
 """Resize and grid-sample primitives (counterpart of
-arco_tpu/ops/interpolate.py), on NCHW tensors.
+arco_tpu/ops/interpolate.py), on NCHW and NCDHW tensors.
 
 The JAX versions are channels-last matmul/gather formulations that XLA
 compiles; here the same functions are stock PyTorch operators, computed in
@@ -13,10 +13,12 @@ import torch.nn.functional as F
 
 def resize_bilinear(x: torch.Tensor, out_spatial,
                     align_corners: bool = True) -> torch.Tensor:
-    """Bilinear resize of an NCHW batch to ``out_spatial`` (H, W)."""
+    """Bilinear resize of an NCHW batch to ``out_spatial`` (H, W), or
+    trilinear of an NCDHW batch to (D, H, W), in f32."""
     if tuple(x.shape[2:]) == tuple(out_spatial):
         return x
-    y = F.interpolate(x.float(), size=tuple(out_spatial), mode="bilinear",
+    mode = {4: "bilinear", 5: "trilinear"}[x.ndim]
+    y = F.interpolate(x.float(), size=tuple(out_spatial), mode=mode,
                       align_corners=align_corners)
     return y.to(x.dtype)
 

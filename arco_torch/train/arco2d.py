@@ -1,4 +1,5 @@
-"""Stage-2 ARCO training step, 2D (counterpart of arco_tpu/train/arco2d.py).
+"""Stage-2 ARCO training step, 2D and 3D (counterpart of
+arco_tpu/train/arco2d.py).
 
 One step, in the JAX order:
   feature-extractor EMA -> teacher pseudo-labels -> cutout/cutmix/classmix
@@ -21,6 +22,10 @@ outside autocast. With ``remat`` the student forwards that carry a gradient
 backward (torch.utils.checkpoint), which changes nothing in the result:
 their dropout masks are drawn before the forward and handed to both runs,
 and the recompute leaves the BatchNorm running statistics alone.
+
+The step is rank-generic: images NCHW (2D U-Net) or NCDHW (3D V-Net,
+[B, C, X, Y, Z] in the JAX package's axis order); class maps, fused reps
+and the pool are channels-last [B, *spatial, C] in both.
 """
 
 from __future__ import annotations
@@ -70,7 +75,7 @@ class ArcoState:
     q_representation: torch.nn.Module
     optimizer: torch.optim.Optimizer
     memobank: MemoBank
-    random_pool: torch.Tensor            # [K, H, W, C] rows L2-normalized
+    random_pool: torch.Tensor            # [K, *spatial, C] L2-normalized
     random_pool_ptr: int
     generator: torch.Generator
     step: int
@@ -143,15 +148,19 @@ def make_arco_modules(model, width: int, height: int, batch_size: int,
                       feature_channels=(256, 128, 64, 32, 16),
                       fused_dim=None, tps_sigma: float = 0.01,
                       total_batch: int = None) -> ArcoModules:
-    """fea_dim [256,128,64,32,16] -> 496 (train_arco_2d.py:231-242).
+    """2D: fea_dim [256,128,64,32,16] -> 496 (train_arco_2d.py:231-242);
+    3D: fea_dim [128,64,32,16,16] -> fused_dim 16 (train_arco_3d.py:
+    208-216), the heads' convs 3-D for a model with ``spatial_dims`` 3.
     ``total_batch`` (labeled + unlabeled, the TPS warp's batch) defaults to
     2 * batch_size."""
     fused = int(fused_dim) if fused_dim else int(sum(feature_channels))
     total = total_batch if total_batch is not None else batch_size * 2
+    nd = getattr(model, "spatial_dims", 2)
     return ArcoModules(
         model=model,
-        feature_extractor=FeatureExtractor(tuple(feature_channels), fused),
-        q_representation=QRepresentation(fused),
+        feature_extractor=FeatureExtractor(tuple(feature_channels), fused,
+                                           nd),
+        q_representation=QRepresentation(fused, nd),
         tps=RandTPS(width, height, batch_size=total, sigma=tps_sigma,
                     random_scale=(0.8, 1.2), mode="affine"))
 
@@ -168,7 +177,8 @@ def init_arco_state(modules: ArcoModules, cfg, input_shape,
                     device="cuda", compute_dtype=torch.bfloat16,
                     pool_dtype=torch.bfloat16) -> ArcoState:
     """Move the modules to ``device`` and build the teacher copies, the
-    optimizer, the memory bank and the random pool. input_shape: NCHW.
+    optimizer, the memory bank and the random pool. input_shape: NCHW or
+    NCDHW.
     The module weights are the ones the modules were built with (seed the
     global torch RNG before building them); ``seed`` drives the pool, the
     bank's init row and every later draw of the step."""
@@ -216,7 +226,8 @@ def init_arco_state(modules: ArcoModules, cfg, input_shape,
 
 
 def _nhwc(x):
-    return x.permute(0, 2, 3, 1)
+    """[B, C, *spatial] -> channels-last [B, *spatial, C] (a view)."""
+    return x.movedim(1, -1)
 
 
 def _autocast(device, dtype):
@@ -355,7 +366,7 @@ def arco_loss_fn(state: ArcoState, modules: ArcoModules, cfg, batch, aug,
         # zeros padding); nothing here carries a gradient
         c_img = images_cj2.shape[1]
         stacked = torch.cat([images_cj2.float(), mask[:, None],
-                             pred_all.detach().float().permute(0, 3, 1, 2)],
+                             pred_all.detach().float().movedim(-1, 1)],
                             dim=1)
         warped = modules.tps.apply(stacked, grid, padding_mode="zeros")
         images_tps = warped[:, :c_img]
@@ -385,9 +396,11 @@ def make_arco_step(modules: ArcoModules, cfg, num_classes: int,
     """Returns step(state, batch, draws=None) -> metrics, which updates
     ``state`` in place.
 
-    batch: image_l [B, C, H, W], label_l [B, H, W] int, image_u [B, C, H, W].
+    batch: image_l [B, C, *S], label_l [B, *S] int, image_u [B, C, *S]
+    with S = (H, W) or (X, Y, Z).
     draws (all optional; missing ones come from ``state.generator``):
-      mix_boxes [B_u, 3] / mix_scores [B_u, K]  (augment/mixing.py)
+      mix_boxes [B_u, 3] (2D) or [B_u, 5] (3D) / mix_scores [B_u, K]
+                (augment/mixing.py)
       photometric {cj1, cj2}: the draws of the two batch_photometric calls,
                 on the teacher-side copy (images_cj2_u) and the student's
                 strong copy (u_aug_strong)  (augment/photometric.py)
@@ -395,8 +408,9 @@ def make_arco_step(modules: ArcoModules, cfg, num_classes: int,
                 same two copies               (augment/morph.py)
       tps   {pert, angle, scale, tx, ty, flip}   (augment/tps.py)
       contra {enq, anchor, neg} uniforms         (losses/contrastive.py)
-      dropout {pseudo, tl, tu, l, u, tps, dead}: per forward, a list of one
-                keep-mask per encoder block       (models/unet2d.py)
+      dropout {pseudo, tl, tu, l, u, tps, dead}: per forward, the model's
+                keep-masks: one per encoder block (models/unet2d.py), or
+                x5 and x9 (models/vnet3d.py)
     """
     device = resolve_device(device)
     optim = optim or OptimConfig()

@@ -12,7 +12,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and for pool_sims the library matmul; the InfoNCE pair at three draws of
    its negatives over full banks: uniform, and the sampler's 'smc' (the
    main path's) and 'asmc' draws, each launch pair bit-identical to the
-   next;
+   next; pool_sims also at 16 query rows (bs 8+8);
 4. hold one small step on the card (bf16 autocast, kernels) against the
    same step on the CPU (f32, plain versions) from the same state, batch
    and draws: once with the strong augmentation off and once at the
@@ -43,10 +43,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    checkpoints, a rerun to 6 resumes from iter_4 (every loss finite, both
    queue pointers at 24, no kernel launched: stage 1 reaches none), and
    ``train_arco_2d --resume`` trains 2 stage-2 steps from its iter_6, each
-   kernel launching once a step.
+   kernel launching once a step;
+8. drive the 3D path (``arco_torch.cli.train_arco_3d.default_3d_config``:
+   V-Net, 112x112x80, 2 classes, fused dim 16, bs 2+2): (a) hold the three
+   kernels against their plain versions at its shapes (the InfoNCE pair at
+   C = 16 over full 2-class banks, pool_sims over 4 x 16,056,320
+   features); (b) one small 3D step on the card against the CPU, as in
+   phase 4; (c) 3 full-width steps with the eqv leg and 3 without, every
+   loss finite, each kernel launched once a step, step ms and peak memory;
+   (d) ``train_arco_3d.train`` 4 steps on six in-memory 128x128x96 volumes
+   from the GPU volume bank (log and checkpoint every 2, so both step
+   functions run), a rerun to 6 from full_iter_4, and the on-card
+   sliding-window evaluation of iter_6 on one volume.
 
 It then prints one JSON line with the phases' numbers, one with the
-kernels' numbers and, last, the device line. Without a CUDA GPU, or
+kernels' numbers (each with its 3D record under "3d"; pool_sims also at 16
+query rows under "rows16") and, last, the device line. Without a CUDA GPU, or
 without the repository beside it, it prints no result and exits non-zero.
 
 Each kernel's "ms", "plain_ms" and "library_ms" time one call between two
@@ -74,10 +86,10 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_OPS_PER_S = 989e12
 
-# the main path's kernel shapes: 4 classes x 256 anchors x 512 negatives
-# over 496-channel bank rows; 2 + 2 reps of 496 x 256 x 256 against 36
-# pool rows
-NUM_CLASSES, Q, N, C, TEMP = 4, 256, 512, 496, 0.5
+# the main path's kernel shapes: 4 classes (one bank each) x 256 anchors x
+# 512 negatives over 496-channel bank rows; 2 + 2 reps of 496 x 256 x 256
+# against 36 pool rows
+Q, N, C, TEMP = 256, 512, 496, 0.5
 CAPS = (50000, 30000, 30000, 30000)
 HW, B_L, B_U, POOL_K = 256, 2, 2, 36
 STEPS = 3
@@ -167,40 +179,44 @@ def phase_build():
             _log("  ptxas:", line.strip())
 
 
-def _neg_draws(gen, device):
-    """neg_idx [K, Q, N] int32 drawn three ways over the full banks: uniform
-    (the draw phase 3 first timed), and Q*N stratified ('smc', the main
-    path's) or antithetic ('asmc') ranks per class, reshaped as
-    losses/contrastive.py does, so that neg_idx[k, q, n] = rank[k, n*Q + q]."""
+def _neg_draws(gen, device, caps, funcs):
+    """neg_idx [K, Q, N] int32 drawn over the full banks of capacities
+    ``caps``, for each of ``funcs``: uniform (the draw phase 3 first timed),
+    and Q*N stratified ('smc', the main path's) or antithetic ('asmc') ranks
+    per class, reshaped as losses/contrastive.py does, so that
+    neg_idx[k, q, n] = rank[k, n*Q + q]."""
     import torch
     from arco_torch.ops import sampling
-    caps = torch.tensor(CAPS, device=device)
-    out = {"uniform": (torch.rand((NUM_CLASSES, Q, N), generator=gen,
-                                  device=device)
-                       * caps[:, None, None]).to(torch.int32)}
-    for func in ("smc", "asmc"):
+    k = len(caps)
+    caps = torch.tensor(caps, device=device)
+    out = {}
+    for func in funcs:
+        if func == "uniform":
+            out[func] = (torch.rand((k, Q, N), generator=gen, device=device)
+                         * caps[:, None, None]).to(torch.int32)
+            continue
         ranks = sampling.draw_indices(caps, Q * N, func=func, generator=gen,
                                       device=device)
-        out[func] = ranks.reshape(NUM_CLASSES, N, Q).transpose(1, 2) \
+        out[func] = ranks.reshape(k, N, Q).transpose(1, 2) \
             .to(torch.int32).contiguous()
     return out
 
 
-def _infonce_inputs(gen, device):
-    """A full bank (steady state) of normalized rows, anchors, prototypes,
-    and negatives drawn three ways from each class's capacity."""
+def _infonce_inputs(gen, device, caps, c, funcs):
+    """A full bank (steady state) of normalized c-channel rows, anchors,
+    prototypes, and negatives drawn from each class's capacity."""
     import torch
     bf = torch.bfloat16
-    bank = torch.randn((NUM_CLASSES, max(CAPS), C), generator=gen,
-                       device=device, dtype=bf)
-    for k in range(NUM_CLASSES):
-        _l2n_rows(bank[k])
-    a_n = _l2n_rows(torch.randn((NUM_CLASSES * Q, C), generator=gen,
-                                device=device, dtype=bf)).view(
-        NUM_CLASSES, Q, C)
-    p_n = _l2n_rows(torch.randn((NUM_CLASSES, C), generator=gen,
-                                device=device, dtype=bf))
-    return a_n, p_n, bank, _neg_draws(gen, device)
+    k = len(caps)
+    bank = torch.randn((k, max(caps), c), generator=gen, device=device,
+                       dtype=bf)
+    for i in range(k):
+        _l2n_rows(bank[i])
+    a_n = _l2n_rows(torch.randn((k * Q, c), generator=gen, device=device,
+                                dtype=bf)).view(k, Q, c)
+    p_n = _l2n_rows(torch.randn((k, c), generator=gen, device=device,
+                                dtype=bf))
+    return a_n, p_n, bank, _neg_draws(gen, device, caps, funcs)
 
 
 def _staged_rows(neg_idx):
@@ -264,16 +280,16 @@ def _infonce_at(a_n, p_n, bank, neg_idx):
     del denom_ref, e_ref, ga_ref, got, want
 
     # the bounds: each distinct row read once, the small tensors once
-    distinct = sum(int(torch.unique(neg_idx[k]).numel())
-                   for k in range(NUM_CLASSES))
+    k, q, c = a_n.shape
+    distinct = sum(int(torch.unique(neg_idx[i]).numel()) for i in range(k))
     rows = {"rows_distinct": distinct, "rows_fetched": _staged_rows(neg_idx)}
-    row_bytes = C * 2
+    row_bytes = c * 2
     small = neg_idx.numel() * 4 + e.numel() * 4
     fwd_bytes = (distinct * row_bytes + a_n.numel() * 2 + small
                  + denom.numel() * 4)
     bwd_bytes = (distinct * row_bytes + small + invtot.numel() * 4
                  + ga.numel() * 4)
-    ops = 2 * NUM_CLASSES * Q * N * C
+    ops = 2 * k * q * neg_idx.shape[2] * c
     out = {}
     for name, fn, plain, n_bytes, n_ops, max_err in (
             ("infonce_fwd",
@@ -295,22 +311,77 @@ def _infonce_at(a_n, p_n, bank, neg_idx):
     return out
 
 
-def phase_kernels(device):
-    """Each kernel against its plain version at the main path's shapes."""
+def _infonce_draws(gen, device, caps, c, funcs):
+    """The InfoNCE pair against its plain versions at each draw of
+    ``funcs``: {kernel name: {func: record}}."""
     import torch
-    from arco_torch.kernels import pool_sims
-    gen = torch.Generator(device=device).manual_seed(0)
-    bf = torch.bfloat16
-    results = []
-
-    # ---- K1 / K2
-    a_n, p_n, bank, draws = _infonce_inputs(gen, device)
+    a_n, p_n, bank, draws = _infonce_inputs(gen, device, caps, c, funcs)
     per_draw = {"infonce_fwd": {}, "infonce_bwd": {}}
     for func, neg_idx in draws.items():
         for name, r in _infonce_at(a_n, p_n, bank, neg_idx).items():
             per_draw[name][func] = r
-        _log(f"infonce at {func} draws: {r['rows_distinct']} distinct rows, "
-             f"{r['rows_fetched']} staged of {neg_idx.numel()} draws")
+        _log(f"infonce (K={len(caps)}, C={c}) at {func} draws: "
+             f"{r['rows_distinct']} distinct rows, {r['rows_fetched']} "
+             f"staged of {neg_idx.numel()} draws")
+    del a_n, p_n, bank, draws
+    torch.cuda.empty_cache()
+    return per_draw
+
+
+def _pool_sims_at(gen, device, b, f):
+    """pool_sims on b queries of f features against POOL_K pool rows: each
+    query near one pool row, so the sims span [0, ~0.7]; against its plain
+    version (max error at most 1e-3 of the largest |sim|), timed, and
+    torch.matmul timed as the library yardstick."""
+    import torch
+    from arco_torch.kernels import pool_sims
+    bf = torch.bfloat16
+    pool = _l2n_rows(torch.randn((POOL_K, f), generator=gen, device=device,
+                                 dtype=bf))
+    queries = torch.randn((b, f), generator=gen, device=device, dtype=bf)
+    for i in range(b):
+        queries[i] = (queries[i].float() * (1.0 / math.sqrt(f))
+                      + 0.7 * (i + 1) / b * pool[i % POOL_K].float()).to(bf)
+    _l2n_rows(queries)
+    sims = pool_sims.pool_similarities(queries, pool)
+    sims_ref = pool_sims.pool_similarities_plain(queries, pool)
+    torch.cuda.synchronize()
+    err = (sims - sims_ref).abs().max().item()
+    scale = sims_ref.abs().max().item()
+    if not err <= 1e-3 * scale:
+        raise AssertionError(f"pool_sims ({b} x {f}): max err {err} > "
+                             f"1e-3 * {scale}")
+    bound, by = _bound_ms((b + POOL_K) * f * 2 + sims.numel() * 4,
+                          2 * b * POOL_K * f)
+
+    def sims_fn():
+        return pool_sims.pool_similarities(queries, pool)
+    out = {"max_abs_err": err, "ms": _time_ms(sims_fn, 20),
+           "device_ms": _device_ms(sims_fn, 20),
+           "plain_ms": _time_ms(
+               lambda: pool_sims.pool_similarities_plain(queries, pool), 3),
+           "bound_ms": bound, "bound_by": by,
+           "library_ms": _time_ms(lambda: torch.matmul(queries, pool.t()),
+                                  20)}
+    _log(f"pool_sims ({b} x {f}): max err {err:.3g} of max |sims| "
+         f"{scale:.3g}; {out['ms']:.4f} ms (device {out['device_ms']:.4f}), "
+         f"bound {bound:.4f}, plain {out['plain_ms']:.3f}, matmul "
+         f"{out['library_ms']:.4f}")
+    del pool, queries
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_kernels(device):
+    """Each kernel against its plain version at the main path's shapes;
+    pool_sims also at 16 query rows (bs 8+8)."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(0)
+    results = []
+
+    # ---- K1 / K2
+    per_draw = _infonce_draws(gen, device, CAPS, C,
+                              ("uniform", "smc", "asmc"))
     for name, replaces in (("infonce_fwd", "infonce.py:127"),
                            ("infonce_bwd", "infonce.py:147")):
         # the top-level numbers are at the main path's draws
@@ -322,50 +393,21 @@ def phase_kernels(device):
             **{k: main[k] for k in ("max_abs_err", "ms", "device_ms",
                                     "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None, "draws": per_draw[name]})
-    del bank, draws
-    torch.cuda.empty_cache()
 
     # ---- K3: queries are the student + teacher reps of the 2 unlabeled
-    # images, each near one pool row so the sims span [0, ~0.7]
+    # images; then 16 rows, the unlabeled reps of bs 8+8
     f = C * HW * HW
-    pool = _l2n_rows(torch.randn((POOL_K, f), generator=gen, device=device,
-                                 dtype=bf))
-    queries = torch.randn((2 * B_U, f), generator=gen, device=device,
-                          dtype=bf)
-    for b in range(2 * B_U):
-        queries[b] = (queries[b].float() * (1.0 / math.sqrt(f))
-                      + 0.7 * (b + 1) / (2 * B_U) * pool[b].float()).to(bf)
-    _l2n_rows(queries)
-    sims = pool_sims.pool_similarities(queries, pool)
-    sims_ref = pool_sims.pool_similarities_plain(queries, pool)
-    torch.cuda.synchronize()
-    err_s = (sims - sims_ref).abs().max().item()
-    scale = sims_ref.abs().max().item()
-    if not err_s <= 1e-3 * scale:
-        raise AssertionError(f"pool_sims: max err {err_s} > 1e-3 * {scale}")
-    bound, by = _bound_ms((2 * B_U + POOL_K) * f * 2 + sims.numel() * 4,
-                          2 * 2 * B_U * POOL_K * f)
-
-    def sims_fn():
-        return pool_sims.pool_similarities(queries, pool)
     results.append({
         "name": "pool_sims", "route": "cuda",
         "source": "arco_torch/kernels/csrc/pool_sims.cu",
         "replaces": "arco_tpu/ops/pallas/pool_sims.py:54",
-        "max_abs_err": err_s, "ms": _time_ms(sims_fn, 20),
-        "device_ms": _device_ms(sims_fn, 20),
-        "plain_ms": _time_ms(
-            lambda: pool_sims.pool_similarities_plain(queries, pool), 3),
-        "bound_ms": bound, "bound_by": by,
-        "library_ms": _time_ms(lambda: torch.matmul(queries, pool.t()), 20)})
-    _log(f"pool_sims: max err {err_s:.3g} of max |sims| {scale:.3g}")
+        **_pool_sims_at(gen, device, 2 * B_U, f),
+        "rows16": _pool_sims_at(gen, device, 16, f)})
     for r in results:
         _log(f"  {r['name']}: {r['ms']:.4f} ms (device "
              f"{r['device_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound "
              f"{r['bound_ms']:.4f} ms by {r['bound_by']}, library "
              f"{r['library_ms']})")
-    del pool, queries
-    torch.cuda.empty_cache()
     return results
 
 
@@ -416,6 +458,8 @@ def _draws(cfg, b_l, b_u, hw, num_classes, gen):
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to(v, device) for v in tree]
     return tree.to(device)
 
 
@@ -904,6 +948,277 @@ def phase_two_stage(device, workdir, root):
                     "stage2_losses": [r["loss"] for r in rows2]}
 
 
+# the 3D path (train_arco_3d.default_3d_config): 2 classes, banks of 50000
+# / 30000 16-channel rows (the V-Net's maps fused to 16 channels) over
+# 112x112x80 patches, bs 2 + 2
+CAPS_3D, C_3D, PATCH_3D = (50000, 30000), 16, (112, 112, 80)
+# the 3D CLI's volumes: larger than the patch, square in-plane; 2 labeled
+CLI3D_SIZE, CLI3D_VOLUMES, CLI3D_LABELED = (128, 128, 96), 6, 2
+
+
+def phase_kernels_3d(device):
+    """The three kernels at the 3D path's shapes, each against its plain
+    version: the InfoNCE pair at C = 16 over the full 2-class banks
+    (uniform and 'smc' draws), pool_sims on 2 * 2 reps of 16 x 112 x 112 x
+    80 features against 36 pool rows."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(4)
+    per_draw = _infonce_draws(gen, device, CAPS_3D, C_3D, ("uniform", "smc"))
+    out = {name: {**per_draw[name][MAIN_DRAW], "library_ms": None,
+                  "draws": per_draw[name]} for name in per_draw}
+    out["pool_sims"] = _pool_sims_at(gen, device, 2 * B_U,
+                                     C_3D * math.prod(PATCH_3D))
+    return out
+
+
+def _synthetic_volumes(b, size, gen, device):
+    """Label volumes of one sphere each, images = label + noise."""
+    import torch
+    axes = [torch.arange(n, device=device, dtype=torch.float32).view(
+        [1] + [n if i == j else 1 for j in range(3)])
+        for i, n in enumerate(size)]
+    c = torch.rand((b, 3), generator=gen, device=device) \
+        * torch.tensor(size, device=device) * 0.5 \
+        + torch.tensor(size, device=device) * 0.25
+    r = (0.15 + 0.15 * torch.rand((b,), generator=gen, device=device)) \
+        * min(size)
+    d2 = sum((ax - c[:, i].view(b, 1, 1, 1)) ** 2
+             for i, ax in enumerate(axes))
+    label = (d2 < r.view(b, 1, 1, 1) ** 2).to(torch.int32)
+    noise = 0.2 * torch.randn((b, 1) + tuple(size), generator=gen,
+                              device=device)
+    return label[:, None].float() + noise, label
+
+
+def _draws_3d(cfg, model, b_l, b_u, size, gen):
+    """Every random draw of one 3D step, made on the CPU: the 3-D cutmix
+    boxes, the TPS draws, the sampler uniforms, and the V-Net's dropout
+    masks (x5, x9) of the six forwards."""
+    import torch
+    from arco_torch.augment.mixing import draw_cutout_boxes
+    from arco_torch.augment.tps import draw_tps
+    q, n, e = cfg.num_queries, cfg.num_negatives, cfg.memobank_enqueue
+    nc = 2
+    masks = {name: model.draw_dropout_masks((b, 1) + tuple(size), gen)
+             for name, b in (("pseudo", b_u), ("tl", b_l), ("tu", b_u),
+                             ("l", b_l), ("u", b_u), ("tps", b_l + b_u))}
+    return {"mix_boxes": draw_cutout_boxes(b_u, size, generator=gen),
+            "tps": draw_tps(b_l + b_u, cfg.tps_sigma, generator=gen),
+            "contra": {"enq": torch.rand((nc, e), generator=gen),
+                       "anchor": torch.rand((nc, q), generator=gen),
+                       "neg": torch.rand((nc, q * n), generator=gen)},
+            "dropout": masks}
+
+
+def _make_3d(cfg, size, b, device, dtype, seed=1):
+    """A V-Net ARCO state and its step (``cfg``: the ArcoConfig) on
+    ``device``, weights from ``seed``."""
+    import torch
+    from arco_torch.cli.train_arco_3d import FEATURE_CHANNELS, FUSED_DIM
+    from arco_torch.models import net_factory_3d
+    from arco_torch.train import arco2d
+    torch.manual_seed(seed)
+    mods = arco2d.make_arco_modules(
+        net_factory_3d("vnet", in_chns=1, class_num=2), size[1], size[0],
+        batch_size=b, feature_channels=FEATURE_CHANNELS, fused_dim=FUSED_DIM)
+    state = arco2d.init_arco_state(mods, cfg, (b, 1) + tuple(size),
+                                   seed=seed, device=device,
+                                   compute_dtype=dtype)
+    return mods, state
+
+
+def phase_reference_3d(device):
+    """One small 3D step (32x32x16, bs 2+2, default_3d_config's flags) on
+    ``device`` in bf16 with the kernels against the same step on the CPU in
+    f32 with the plain versions: the same weights, pool, bank, batch and
+    draws (dropout masks included); phase 4's tolerance per loss term."""
+    import torch
+    from arco_torch.cli.train_arco_3d import default_3d_config
+    from arco_torch.train import arco2d
+    size, b = (32, 32, 16), 2
+    cfg = dataclasses.replace(
+        default_3d_config().arco, K=4, num_queries=32, num_negatives=64,
+        memobank_size=256, memobank_size_bg=512, memobank_enqueue=64, topk=2)
+    runs = []
+    for dev, dtype in (("cpu", torch.float32), (device, torch.bfloat16)):
+        mods, state = _make_3d(cfg, size, b, dev, dtype)
+        step = arco2d.make_arco_step(mods, cfg, num_classes=2,
+                                     max_iterations=100, device=dev)
+        runs.append((mods, state, step))
+    (ref_mods, ref_state, ref_step), (_, state, step) = runs
+    state.random_pool.copy_(ref_state.random_pool)
+    state.memobank.data.copy_(ref_state.memobank.data)
+    gen = torch.Generator().manual_seed(2)
+    image_l, label_l = _synthetic_volumes(b, size, gen, "cpu")
+    image_u, _ = _synthetic_volumes(b, size, gen, "cpu")
+    batch = {"image_l": image_l, "label_l": label_l, "image_u": image_u}
+    draws = _draws_3d(cfg, ref_mods.model, b, b, size, gen)
+    want = ref_step(ref_state, batch, draws)
+    got = step(state, _to(batch, device), _to(draws, device))
+    for k in ("loss", "reco_loss", "loss_q", "unsup_loss", "loss_ce",
+              "loss_dice", "loss_eqv"):
+        g, w = float(got[k]), float(want[k])
+        _log(f"  reference (3D) {k}: card {g:.6f} cpu {w:.6f}")
+        if not abs(g - w) <= 2e-2 + 5e-2 * abs(w):
+            raise AssertionError(f"3D {k}: card {g} vs cpu {w}")
+
+
+def phase_main_path_3d(device):
+    """The 3D trainer's two step functions at default_3d_config and full
+    width: 3 steps with the eqv leg, 3 without, on 2 + 2 synthetic
+    112x112x80 volumes with full banks."""
+    import torch
+    from arco_torch.cli.train_arco_3d import default_3d_config
+    from arco_torch.kernels import launch_counts, reset_launch_counts
+    from arco_torch.train import arco2d
+    cfg = default_3d_config()
+    b_l = cfg.data.labeled_bs
+    b_u = cfg.data.batch_size - b_l
+    t0 = time.perf_counter()
+    mods, state = _make_3d(cfg.arco, PATCH_3D, b_l, device, torch.bfloat16,
+                           seed=0)
+    steps = {label: arco2d.make_arco_step(
+        mods, dataclasses.replace(cfg.arco, compute_eqv=eqv), num_classes=2,
+        max_iterations=cfg.optim.max_iterations, device=device)
+        for label, eqv in (("eqv", True), ("no eqv", False))}
+    torch.cuda.synchronize()
+    _log(f"3D init_arco_state: {time.perf_counter() - t0:.2f} s; pool "
+         f"{tuple(state.random_pool.shape)} {state.random_pool.dtype}, "
+         f"bank {tuple(state.memobank.data.shape)}")
+    gen = torch.Generator(device=device).manual_seed(5)
+    bank = state.memobank
+    for k in range(bank.num_classes):
+        _l2n_rows(bank.data[k].normal_(generator=gen))
+    bank.count = torch.tensor(bank.capacities, dtype=torch.int32,
+                              device=device)
+    batches = []
+    for _ in range(2 * STEPS):
+        image_l, label_l = _synthetic_volumes(b_l, PATCH_3D, gen, device)
+        image_u, _ = _synthetic_volumes(b_u, PATCH_3D, gen, device)
+        batches.append({"image_l": image_l, "label_l": label_l,
+                        "image_u": image_u})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    step_ms = {label: [] for label in steps}
+    for i, batch in enumerate(batches):
+        label = "eqv" if i < STEPS else "no eqv"
+        t0 = time.perf_counter()
+        m = steps[label](state, batch)
+        torch.cuda.synchronize()
+        step_ms[label].append((time.perf_counter() - t0) * 1e3)
+        terms = {k: float(v) for k, v in m.items() if v.ndim == 0}
+        _log(f"3D {label} step {i % STEPS}: {step_ms[label][-1]:.1f} ms "
+             + json.dumps(terms))
+        if not all(math.isfinite(v) for v in terms.values()):
+            raise AssertionError(f"3D step {i}: non-finite {terms}")
+        if (terms["loss_eqv"] > 0) != (label == "eqv"):
+            raise AssertionError(f"3D {label} step: loss_eqv "
+                                 f"{terms['loss_eqv']}")
+        if tuple(m["pred_l_label"].shape) != (b_l,) + PATCH_3D:
+            raise AssertionError(f"pred_l_label {m['pred_l_label'].shape}")
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    _log(f"3D launches over {2 * STEPS} steps: {counts}")
+    for name, n in counts.items():
+        if n != 2 * STEPS:
+            raise AssertionError(f"3D: {name} launched {n} times in "
+                                 f"{2 * STEPS} steps")
+    if state.step != 2 * STEPS or bool((state.memobank.ptr != 1).any()):
+        # 2 classes: the negative mask is empty (the labeled pixels of a
+        # class are never its negatives), so no key is enqueued
+        raise AssertionError("3D: the step counter or bank pointer is off")
+    for label in steps:
+        _log(f"3D step ms ({label}) {[round(t, 2) for t in step_ms[label]]}")
+    _log(f"3D peak memory {peak / 2**30:.2f} GiB")
+    del state, steps, batches, bank, mods
+    torch.cuda.empty_cache()
+    return counts, {"step_ms": step_ms, "peak_gib": peak / 2**30}
+
+
+def phase_cli_3d(device, workdir):
+    """The 3D CLI: train_arco_3d.train 4 steps on in-memory LA-like volumes
+    from the GPU volume bank (log and checkpoint every 2, so both step
+    functions run), a rerun to 6 that resumes from full_iter_4, then the
+    sliding-window evaluation of iter_6 on one volume on the card."""
+    import functools
+    import pickle
+    import numpy as np
+    import torch
+    from arco_torch.cli import train_arco_3d
+    from arco_torch.data.datasets import InMemoryVolumes
+    from arco_torch.data.synthetic import la_volume
+    from arco_torch.eval.sliding_window import evaluate_3d, model_predictor
+    from arco_torch.eval.sliding_window_device import \
+        test_single_case_3d_device
+    from arco_torch.kernels import launch_counts, reset_launch_counts
+    from arco_torch.models import net_factory_3d
+    from arco_torch.train import checkpoint as ckpt
+    rs = np.random.RandomState(2)
+    vols = [la_volume(rs, CLI3D_SIZE) for _ in range(CLI3D_VOLUMES)]
+    dataset = (InMemoryVolumes(vols[:CLI3D_LABELED], PATCH_3D),
+               InMemoryVolumes(vols[CLI3D_LABELED:], PATCH_3D))
+    model_dir = str(workdir / "model3d")
+
+    def run(iterations):
+        cfg, snap = train_arco_3d.parse([
+            "--exp", "LA/smoke", "--labeled_num", str(CLI3D_LABELED),
+            "--snapshot_dir", model_dir, "--max_iterations", str(iterations),
+            "--log_every", "2", "--ckpt_every", "2"])
+        train_arco_3d.train(cfg, snap, dataset=dataset)
+        return Path(snap)
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    run(4)
+    t1 = time.perf_counter()
+    snap = run(6)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = launch_counts()
+    _log(f"3D cli: 4 steps in {t1 - t0:.1f} s, resumed to 6 in "
+         f"{t2 - t1:.1f} s (set-up included); launches {counts}")
+    for name, n in counts.items():
+        if n != 6:
+            raise AssertionError(f"3D cli: {name} launched {n} times in 6 "
+                                 "steps")
+    log = (snap / "log.txt").read_text()
+    for want in (f"device data path: {CLI3D_LABELED} + "
+                 f"{CLI3D_VOLUMES - CLI3D_LABELED} volumes staged on "
+                 f"{device}", "resuming full train state from full_iter_4",
+                 "iteration 6 : loss"):
+        if want not in log:
+            raise AssertionError(f"3D cli: log.txt lacks {want!r}")
+    with open(snap / "record.pkl", "rb") as f:
+        history = pickle.load(f)
+    rows = [json.loads(line)
+            for line in (snap / "metrics.jsonl").read_text().splitlines()]
+    if len(history) != 6 or not all(math.isfinite(v) for v in history) \
+            or [r["step"] for r in rows] != [2, 4, 6] \
+            or not all(r["loss_eqv"] > 0 for r in rows):
+        raise AssertionError(f"3D cli: record.pkl {history}, metrics {rows}")
+    vps = [r["volumes_per_sec"] for r in rows]
+    _log(f"3D cli vol/s per 2-step log interval {[round(v, 3) for v in vps]}")
+
+    model = net_factory_3d("vnet", in_chns=1, class_num=2).to(device)
+    model.load_state_dict(ckpt.load_model_params(str(snap), 6))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = evaluate_3d(["vol0"], {"vol0": vols[0]}.__getitem__,
+                      model_predictor(model, device), 2, PATCH_3D, 18, 4,
+                      case_fn=functools.partial(test_single_case_3d_device,
+                                                device=device))
+    eval_s = time.perf_counter() - t0
+    metrics = res["per_class"][0]
+    _log(f"3D eval of iter_6 on one {CLI3D_SIZE} volume in {eval_s:.2f} s: "
+         f"(dice, jc, hd95, asd) {metrics.tolist()}")
+    if not (np.isfinite(res["raw"]).all() and 0 <= metrics[0] <= 1
+            and 0 <= metrics[1] <= 1 and (metrics[2:] >= 0).all()):
+        raise AssertionError(f"3D cli: eval gave {metrics}")
+    return counts, {"volumes_per_sec": vps, "eval_s": eval_s,
+                    "eval_per_class": res["per_class"].tolist()}
+
+
 def main():
     try:
         import torch
@@ -933,12 +1248,20 @@ def main():
                                  n_train=CLI_SLICES, size=(256, 256))
         cli_counts, cli = phase_cli(device, workdir, root)
         two_counts, two_stage = phase_two_stage(device, workdir, root)
+        kernels_3d = phase_kernels_3d(device)
+        phase_reference_3d(device)
+        counts_3d, main_path_3d = phase_main_path_3d(device)
+        cli3d_counts, cli_3d = phase_cli_3d(device, workdir)
     for k in kernels:
-        k["launches"] = counts[k["name"]]
-        k["launches_cli"] = cli_counts[k["name"]]
-        k["launches_two_stage"] = two_counts[k["name"]]
+        name = k["name"]
+        k["launches"] = counts[name]
+        k["launches_cli"] = cli_counts[name]
+        k["launches_two_stage"] = two_counts[name]
+        k["3d"] = {**kernels_3d[name], "launches": counts_3d[name],
+                   "launches_cli": cli3d_counts[name]}
     print(json.dumps({"main_path": main_path, "cli": cli,
-                      "two_stage": two_stage}))
+                      "two_stage": two_stage, "main_path_3d": main_path_3d,
+                      "cli_3d": cli_3d}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

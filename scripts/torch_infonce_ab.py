@@ -67,12 +67,13 @@ def run_one(root: Path):
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
     gen = torch.Generator(device=device).manual_seed(0)
-    a_n, p_n, bank, draws = cs._infonce_inputs(gen, device)
+    a_n, p_n, bank, draws = cs._infonce_inputs(
+        gen, device, cs.CAPS, cs.C, ("uniform", "smc", "asmc"))
     it = 1.0 / cs.TEMP
     pos = (a_n.float() * p_n.float()[:, None]).sum(-1) * it
     reads_e = next(iter(inspect.signature(infonce.infonce_bwd)
                         .parameters)) == "e"
-    k = torch.arange(cs.NUM_CLASSES, device=device)[:, None, None]
+    k = torch.arange(len(cs.CAPS), device=device)[:, None, None]
     for func, idx in draws.items():
         rows = bank[k, idx.long()].float()
         e = torch.exp(torch.einsum("kqc,kqnc->kqn", a_n.float(), rows) * it

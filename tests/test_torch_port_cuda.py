@@ -1,7 +1,8 @@
 """The port on the card: the CUDA kernels against their plain PyTorch
-versions, the GPU slice bank against the host pipeline, the strong
-augmentations against the CPU, a small pretrain step against the CPU, and
-the stage-2 step with ``remat`` against the step without it.
+versions (also at the 3D path's shapes), the GPU slice and volume banks
+against the host pipeline, the strong augmentations against the CPU, a
+small pretrain step against the CPU, and the stage-2 step with ``remat``
+against the step without it.
 
 Every test here needs a CUDA GPU and skips without one. This file imports
 nothing of JAX, so it also runs where JAX is not installed:
@@ -94,6 +95,30 @@ def test_infonce_pair_matches_plain(cuda, func):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("func", ["uniform", "smc"])
+def test_infonce_pair_at_the_3d_shapes(cuda, func):
+    """The 3D path's pair: 2 classes, 256 anchors x 512 negatives of
+    16-channel rows, banks of 50000 / 30000 normalized rows."""
+    k, q, n, c, caps = 2, 256, 512, 16, (50000, 30000)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    a_n = _normalized((k, q, c), gen, cuda)
+    bank = _normalized((k, max(caps), c), gen, cuda)
+    ranks = sampling.draw_indices(torch.tensor(caps, device=cuda), q * n,
+                                  func=func, generator=gen, device=cuda)
+    idx = ranks.reshape(k, n, q).transpose(1, 2).to(torch.int32).contiguous()
+    invtot = torch.rand((k, q), device=cuda)
+    denom, e = infonce.infonce_fwd(a_n, bank, idx, 1 / T)
+    ga = infonce.infonce_bwd(e, bank, idx, invtot)
+    torch.cuda.synchronize()
+    denom_ref, e_ref = infonce.infonce_denom_plain(a_n, bank, idx, 1 / T)
+    torch.testing.assert_close(denom, denom_ref, rtol=1e-3, atol=0)
+    torch.testing.assert_close(e, e_ref, rtol=1e-3, atol=0)
+    want = infonce.infonce_grad_plain(e_ref, bank, idx, invtot)
+    torch.testing.assert_close(ga, want, rtol=1e-3,
+                               atol=1e-3 * want.abs().max().item())
+
+
+@pytest.mark.cuda
 def test_infonce_pair_duplicate_rows(cuda):
     """Every query of a group draws the same row at each n: one staged copy
     serves all of them, and a row drawn twice adds twice."""
@@ -135,13 +160,33 @@ def test_fused_infonce_autograd_matches_plain(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,k", [(1, 5), (4, 36), (8, 3)])
+@pytest.mark.parametrize("b,k", [(1, 5), (4, 36), (8, 3), (9, 36), (16, 36),
+                                 (21, 4)])
 def test_pool_sims_matches_plain(cuda, b, k):
-    """F not a multiple of the kernel's 4096-element chunk."""
+    """F not a multiple of the kernel's 4096- or 2048-element chunk; 9 and
+    16 query rows on one pass of the pool, 21 in groups of 16 + 5."""
     f = 3 * 4096 + 8
     gen = torch.Generator(device=cuda).manual_seed(b)
     q = torch.randn((b, f), generator=gen, device=cuda).to(torch.bfloat16)
     p = torch.randn((k, f), generator=gen, device=cuda).to(torch.bfloat16)
+    got = pool_sims.pool_similarities(q, p)
+    torch.cuda.synchronize()
+    want = pool_sims.pool_similarities_plain(q, p)
+    torch.testing.assert_close(got, want, rtol=1e-3,
+                               atol=1e-3 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_pool_sims_at_the_3d_shape(cuda):
+    """The 3D path's revisiting loss: 2 x 2 reps of 16 x 112 x 112 x 80
+    features against 36 pool rows."""
+    f = 16 * 112 * 112 * 80
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    p = _normalized((36, f), gen, cuda)
+    # each query near one pool row, so the sims span [0, ~0.7]
+    q = torch.randn((4, f), generator=gen, device=cuda) / f ** 0.5 \
+        + 0.7 * torch.arange(1, 5, device=cuda)[:, None] / 4 * p[:4].float()
+    q = torch.nn.functional.normalize(q, dim=-1).to(torch.bfloat16)
     got = pool_sims.pool_similarities(q, p)
     torch.cuda.synchronize()
     want = pool_sims.pool_similarities_plain(q, p)
@@ -156,7 +201,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         infonce.infonce_fwd(a, a.to(torch.bfloat16),
                             torch.zeros(1, 2, 3, dtype=torch.int32,
                                         device=cuda), 2.0)
-    q = torch.randn(9, 64, device=cuda).to(torch.bfloat16)   # B > 8
+    q = torch.randn(2, 60, device=cuda).to(torch.bfloat16)   # F % 8
     with pytest.raises(ValueError):
         pool_sims.pool_similarities(q, q)
     # a contiguous bank view 2 bytes into its storage: the kernel's 16-byte
@@ -195,6 +240,32 @@ def test_device_slice_bank_matches_the_host_pipeline(cuda, tmp_path):
                                           want["label_l"])
     finally:
         host.close()
+
+
+@pytest.mark.cuda
+def test_device_volume_bank_on_the_card_matches_the_host_path(cuda):
+    """LA-like volumes of 40x40x24 (in memory: the card has no h5py) and
+    32x32x16 patches: the card's gathers equal the CPU bank's and the host
+    transforms', with the same RandomState consumption."""
+    rs = np.random.RandomState(0)
+    ds = datasets.InMemoryVolumes(
+        [synthetic.la_volume(rs, (40, 40, 24)) for _ in range(3)],
+        (32, 32, 16))
+    on_card = device_bank.DeviceVolumeBank.from_dataset(ds, ds.patch_size,
+                                                        cuda)
+    on_cpu = device_bank.DeviceVolumeBank.from_dataset(ds, ds.patch_size,
+                                                       "cpu")
+    rng, host_rng = np.random.RandomState(4), np.random.RandomState(4)
+    params = on_card.draw_params(rng, [0, 2, 1, 2, 0])
+    img, lab = on_card.gather(params)
+    assert img.device.type == cuda.type
+    want_img, want_lab = on_cpu.gather(params)
+    assert torch.equal(img.cpu(), want_img) and torch.equal(lab.cpu(),
+                                                            want_lab)
+    host = [ds.get(i, host_rng) for i in (0, 2, 1, 2, 0)]
+    np.testing.assert_array_equal(lab.cpu().numpy(),
+                                  np.stack([s["label"] for s in host]))
+    assert rng.randint(1 << 30) == host_rng.randint(1 << 30)
 
 
 @pytest.mark.cuda
