@@ -137,37 +137,48 @@ def train(cfg: TrainConfig, snapshot_path: str, dataset=None):
     if dataset is None:
         dataset = SliceDataset(cfg.data.root_path, "train",
                                output_size=cfg.data.patch_size)
-    batches = pretrain_batches(cfg, dataset, device)
-    logger = MetricLogger(snapshot_path)
     view_gen = torch.Generator(device=device)
     view_gen.manual_seed(cfg.seed + 1)
+    batches = (dict(zip(("student_image", "teacher_image"),
+                        make_views(images, cfg.isd.combinations, view_gen)),
+                    label=labels)
+               for images, labels in pretrain_batches(cfg, dataset, device))
+    run_pretrain_loop(cfg, snapshot_path, state, step_fn, batches)
+    return "Training Finished!"
 
+
+def run_pretrain_loop(cfg: TrainConfig, snapshot_path: str, state, step_fn,
+                      batches, unit: str = "img"):
+    """Train ``state`` from its step to ``cfg.optim.max_iterations`` on the
+    ``batches`` (dicts of student_image, teacher_image, label): log every
+    ``log_every`` ("images_per_sec" or, for ``unit`` "vol",
+    "volumes_per_sec"), save the whole state every ``ckpt_every`` and at
+    the end."""
+    rate = "images_per_sec" if unit == "img" else "volumes_per_sec"
+    bs = cfg.data.batch_size
+    logger = MetricLogger(snapshot_path)
     t0 = time.time()
     try:
         while state.step < cfg.optim.max_iterations:
-            images, labels = next(batches)
-            stu, tea = make_views(images, cfg.isd.combinations, view_gen)
-            metrics = step_fn(state, {"student_image": stu,
-                                      "teacher_image": tea, "label": labels})
+            metrics = step_fn(state, next(batches))
             it = state.step
             if it % cfg.log_every == 0:
                 # all the terms in one copy to the host
                 m = dict(zip(metrics, torch.stack(
                     list(metrics.values())).tolist()))
-                ips = cfg.log_every * bs / (time.time() - t0)
+                per_s = cfg.log_every * bs / (time.time() - t0)
                 t0 = time.time()
-                logger.log(it, {**m, "images_per_sec": ips})
+                logger.log(it, {**m, rate: per_s})
                 logging.info(
                     "iteration %d : loss : %f, loss_ce: %f, loss_dice: %f, "
-                    "loss_latent: %f, loss_output: %f (%.1f img/s)", it,
+                    "loss_latent: %f, loss_output: %f (%.1f %s/s)", it,
                     m["loss"], m["loss_ce"], m["loss_dice"],
-                    m["loss_latent"], m["loss_output"], ips)
+                    m["loss_latent"], m["loss_output"], per_s, unit)
             if it % cfg.ckpt_every == 0:
                 ckpt.save_state(snapshot_path, it, state)
         ckpt.save_state(snapshot_path, state.step, state)
     finally:
         logger.close()
-    return "Training Finished!"
 
 
 def parse(argv=None):

@@ -3,7 +3,9 @@ arco_tpu/cli/test_3d.py; reference: test_3D.py).
 
     python -m arco_torch.cli.test_3d --root_path ../data/LA --exp LA/arco
 
-It reads the port's own iter_<N> checkpoints, one (default: the newest) or
+It builds any ``net_factory_3d`` model the port has (``--model vnet``,
+``unet_3D``, ``attention_unet``), reads the port's own iter_<N> checkpoints
+(of stage 2, or of the 3D pretrain), one (default: the newest) or
 a sweep (--startEpoch/--endEpoch/--stepEpoch, test_3D.py:39-41), and runs on
 the card unless given ``--device cpu``, in f32 without TF32. With
 ``--device_eval 1`` (the default) each case stays on the device
@@ -54,7 +56,11 @@ def build_parser():
     return p
 
 
-def main(argv=None):
+def main(argv=None, dataset=None):
+    """``dataset``: the test volumes (default: the LAHeartDataset test split
+    of ``--root_path``, as in JAX); it exposes ``sample_list`` and
+    ``load(i)`` (``data.datasets.InMemoryVolumes`` on a machine without
+    h5py)."""
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     # the f32 forward of training: no TF32 in convolutions or matmuls
@@ -68,7 +74,8 @@ def main(argv=None):
                                args.endEpoch, args.stepEpoch)
     model = net_factory_3d(args.model, in_chns=1,
                            class_num=args.num_classes).to(device)
-    dataset = LAHeartDataset(args.root_path, split="test")
+    if dataset is None:
+        dataset = LAHeartDataset(args.root_path, split="test")
 
     def load(case):
         return dataset.load(dataset.sample_list.index(case))

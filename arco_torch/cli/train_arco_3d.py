@@ -14,7 +14,8 @@ runs on the card unless given ``--device cpu``; the training volumes are
 staged on the device (data/device_bank.py:DeviceVolumeBank) unless they do
 not share one square-plane shape. A rerun resumes from the newest
 full_iter_<N> of its snapshot directory; ``--resume <exp>`` starts from
-that experiment's newest V-Net iter_<N> weights.
+the newest iter_<N> weights of that experiment's 3D pretrain
+(cli/pretrain_3d.py).
 """
 
 from __future__ import annotations
@@ -94,7 +95,7 @@ def train(cfg: TrainConfig, snapshot_path: str, dataset=None):
     torch.manual_seed(cfg.seed)       # the module weights
     model = net_factory_3d(cfg.model, in_chns=cfg.data.in_channels,
                            class_num=num_classes)
-    # the 3D stage 1 is not ported: --resume loads a V-Net iter_<N>
+    # --resume: the stage-1 weights of cli/pretrain_3d.py's newest iter_<N>
     load_stage1(cfg, model)
     modules = make_arco_modules(
         model, patch[1], patch[0], batch_size=b_l, total_batch=bs,

@@ -17,8 +17,9 @@ convert_q_representation_state_dict) without importing it:
 - the random pool [K, *spatial, C] is already the port's layout
   (channels-last reps, see models/heads.py) and is copied as it is.
 
-The stage-2 model is the 2D U-Net or the 3D V-Net (module names of
-models/unet2d.py and models/vnet3d.py), told apart by the flax tree.
+The model is the 2D U-Net, the 3D V-Net or one of the 3-D U-Nets (module
+names of models/unet2d.py, models/vnet3d.py and models/unet3d.py), told
+apart by the flax tree.
 """
 
 from __future__ import annotations
@@ -119,10 +120,60 @@ def vnet_state_dict_from_flax(params, batch_stats) -> dict:
     return sd
 
 
+def _unet_conv3(p, prefix, sd):
+    """A UnetConv3's two convs (its InstanceNorms hold no state)."""
+    _put(sd, f"{prefix}.conv1.0", _conv(p["Conv_0"]))
+    _put(sd, f"{prefix}.conv2.0", _conv(p["Conv_1"]))
+
+
+def unet3d_state_dict_from_flax(params, batch_stats) -> dict:
+    """flax UNet3D, UNet3DDVSemi or AttentionUNet3D (params, batch_stats)
+    -> state_dict of the models.unet3d model (the reference module names;
+    inverse of torch_import_zoo's convert_unet3d_state_dict,
+    convert_unet3d_dv_semi_state_dict and
+    convert_attention_unet_state_dict)."""
+    sd = {}
+    for i, name in enumerate(("conv1", "conv2", "conv3", "conv4", "center")):
+        _unet_conv3(params[f"UnetConv3_{i}"], name, sd)
+    for i, name in enumerate(("up_concat4", "up_concat3", "up_concat2",
+                              "up_concat1")):
+        _unet_conv3(params[f"UnetUp3CT_{i}"]["UnetConv3_0"], f"{name}.conv",
+                    sd)
+    if "dsv1" in params:
+        _put(sd, "dsv1", _conv(params["dsv1"]))
+        for k in (2, 3, 4):
+            _put(sd, f"dsv{k}.dsv.0", _conv(params[f"dsv{k}"]))
+    if "final" in params:                     # AttentionUNet3D
+        _put(sd, "final", _conv(params["final"]))
+    elif "Conv_0" in params:                  # UNet3D
+        _put(sd, "final", _conv(params["Conv_0"]))
+    if "MultiAttentionBlock_0" in params:
+        _put(sd, "gating.conv1.0", _conv(params["Conv_0"]))
+        for i, blk in enumerate(("attentionblock4", "attentionblock3",
+                                 "attentionblock2")):
+            p = params[f"MultiAttentionBlock_{i}"]
+            s = batch_stats[f"MultiAttentionBlock_{i}"]
+            for g in range(2):
+                gp = p[f"GridAttentionBlock3D_{g}"]
+                gs = s[f"GridAttentionBlock3D_{g}"]
+                pre = f"{blk}.gate_block_{g + 1}"
+                for j, part in enumerate(("theta", "phi", "psi", "W.0")):
+                    _put(sd, f"{pre}.{part}", _conv(gp[f"Conv_{j}"]))
+                _put(sd, f"{pre}.W.1", _bn(gp["BatchNorm_0"],
+                                           gs["BatchNorm_0"]))
+            _put(sd, f"{blk}.combine_gates.0", _conv(p["Conv_0"]))
+            _put(sd, f"{blk}.combine_gates.1", _bn(p["BatchNorm_0"],
+                                                   s["BatchNorm_0"]))
+    return sd
+
+
 def model_state_dict_from_flax(params, batch_stats) -> dict:
-    """The stage-2 model's state_dict: U-Net or V-Net by the flax tree."""
+    """The model's state_dict: U-Net, V-Net or a 3-D U-Net by the flax
+    tree."""
     if "VNetConvBlock_0" in params:
         return vnet_state_dict_from_flax(params, batch_stats)
+    if "UnetConv3_0" in params:
+        return unet3d_state_dict_from_flax(params, batch_stats)
     return unet_state_dict_from_flax(params, batch_stats)
 
 
@@ -133,8 +184,8 @@ def feature_extractor_state_dict_from_flax(params) -> dict:
 
 def head_state_dict_from_flax(params) -> dict:
     """A stacked head's flax params (QRepresentation, ProjectionHead,
-    LatentMLP, LatentPredictor, OutputsPredictor, RepresentationHead) ->
-    the port head's state_dict."""
+    LatentMLP, LatentPredictor, OutputsPredictor, RepresentationHead; 1x1
+    or 1x1x1 conv kernels) -> the port head's state_dict."""
     sd = {}
     for name, p in params.items():
         kind, i = name.rsplit("_", 1)
@@ -185,15 +236,16 @@ def load_flax_pretrain_state(state, flax_state: dict):
     """Copy a JAX PretrainState (numpy, as ``{"params", "batch_stats",
     "ema_params", "ema_batch_stats", "queue", "queue_ptr", "queue_mask",
     "mask_queue_ptr", "step"}``) into the port's
-    ``train.pretrain.PretrainState`` in place. The queues keep their
-    layout: JAX flattens each descriptor in (h, w, c) order, as the port
-    does. The optimizer's momentum is not carried."""
+    ``train.pretrain.PretrainState`` in place, 2D or 3D (the model told
+    apart by its flax tree). The queues keep their layout: JAX flattens
+    each descriptor in (h, w, c) / (x, y, z, c) order, as the port does.
+    The optimizer's momentum is not carried."""
     params, ema = flax_state["params"], flax_state["ema_params"]
     for target, p, s in ((state.model, params, flax_state["batch_stats"]),
                          (state.ema_model, ema,
                           flax_state["ema_batch_stats"])):
-        target.load_state_dict(unet_state_dict_from_flax(p["model"],
-                                                         s["model"]))
+        target.load_state_dict(model_state_dict_from_flax(p["model"],
+                                                          s["model"]))
     for name in ("latent_head", "latent_predictor", "outputs_head",
                  "outputs_predictor"):
         getattr(state, name).load_state_dict(

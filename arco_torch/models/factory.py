@@ -1,6 +1,7 @@
 """String -> model factories (counterpart of arco_tpu/models/factory.py).
 
-Ported so far: the 2D ``unet`` and the 3D ``vnet``; the other keys raise."""
+Ported so far: the 2D ``unet`` and the 3D ``vnet``, ``unet_3D``,
+``unet_3D_dv_semi`` and ``attention_unet``; the other keys raise."""
 
 from __future__ import annotations
 
@@ -18,7 +19,11 @@ def net_factory_3d(net_type: str = "vnet", in_chns: int = 1,
     if net_type == "vnet":
         from arco_torch.models.vnet3d import VNet
         return VNet(n_channels=in_chns, n_classes=class_num, **kwargs)
+    from arco_torch.models import unet3d
+    cls = {"unet_3D": unet3d.UNet3D, "unet_3D_dv_semi": unet3d.UNet3DDVSemi,
+           "attention_unet": unet3d.AttentionUNet3D}.get(net_type)
+    if cls is not None:
+        return cls(in_channels=in_chns, n_classes=class_num, **kwargs)
     raise NotImplementedError(
-        f"net_type={net_type!r} is not ported yet: the 3-D models other "
-        "than vnet wait for ROADMAP Queue A item 3 (UNet3D, "
-        "AttentionUNet3D)")
+        f"net_type={net_type!r} is not ported yet: voxresnet and nnUNet "
+        "come with the rest of the zoo (ROADMAP Queue A item 4)")

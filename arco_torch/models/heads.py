@@ -1,7 +1,8 @@
 """Heads of both stages (counterpart of arco_tpu/models/heads.py).
 
 Stage 2: FeatureExtractor, QRepresentation. Stage 1 (ISD): ProjectionHead,
-LatentMLP, LatentPredictor, OutputsPredictor; and RepresentationHead.
+LatentMLP, LatentPredictor, OutputsPredictor; and RepresentationHead. Each
+head but RepresentationHead takes ``nd``, its spatial rank (2 or 3).
 
 The 1x1-conv heads compute as matrix products over the channel dim of
 channels-last [B, *spatial, C] tensors (2D or 3D): the fused representation
@@ -124,16 +125,18 @@ class QRepresentation(_Conv1x1Stack):
 class ProjectionHead(_Conv1x1Stack):
     """AdaptiveAvgPool to ``output_pooling_size``, then 1x1 convs in -> 2*in
     -> proj_dim (``proj="convmlp"``) or one 1x1 conv in -> proj_dim
-    (``"linear"``, no pool), over channels-last [N, H, W, C]
-    (model_2D.py:67-92)."""
+    (``"linear"``, no pool), over channels-last [N, *spatial, C] with
+    ``nd`` spatial dims (model_2D.py:67-92, model_3D.py:75-100)."""
 
     def __init__(self, in_channels: int, proj_dim: int = 4,
-                 output_pooling_size: int = 16, proj: str = "convmlp"):
+                 output_pooling_size: int = 16, proj: str = "convmlp",
+                 nd: int = 2):
+        conv = CONV[nd]
         if proj == "linear":
-            convs = [nn.Conv2d(in_channels, proj_dim, 1)]
+            convs = [conv(in_channels, proj_dim, 1)]
         else:
-            convs = [nn.Conv2d(in_channels, 2 * in_channels, 1),
-                     nn.Conv2d(2 * in_channels, proj_dim, 1)]
+            convs = [conv(in_channels, 2 * in_channels, 1),
+                     conv(2 * in_channels, proj_dim, 1)]
         super().__init__(*convs)
         self.output_pooling_size = output_pooling_size
         self.proj = proj
@@ -142,7 +145,7 @@ class ProjectionHead(_Conv1x1Stack):
         """``pre_pooled``: the caller already pooled x to
         output_pooling_size (ops.patches.pooled_patch_grid)."""
         if self.proj != "linear" and not pre_pooled:
-            x = _nhwc(adaptive_avg_pool(x.permute(0, 3, 1, 2),
+            x = _nhwc(adaptive_avg_pool(x.movedim(-1, 1),
                                         self.output_pooling_size))
         return super().forward(x)
 
@@ -157,14 +160,20 @@ class RepresentationHead(nn.Sequential):
 
 
 class LatentMLP(nn.Sequential):
-    """The latent head: AdaptiveAvgPool to ``pooling_size`` of the NCHW
-    bottleneck, flattened in (h, w, c) order as JAX flattens its
-    channels-last map, then two Linear layers (model_2D.py:98-112)."""
+    """The latent head: AdaptiveAvgPool to ``pooling_size`` of the [B, C,
+    *spatial] bottleneck (``nd`` spatial dims), flattened in (h, w, c) /
+    (x, y, z, c) order as JAX flattens its channels-last map, then two
+    Linear layers (model_2D.py:98-112). As in flax's Dense, the hidden
+    width ``input_channels`` is not tied to the latent's own channel count
+    ``latent_channels`` (default: the same): the V-Net's 128-channel latent
+    meets a 256-wide hidden layer in the 3D pretrain."""
 
     def __init__(self, input_channels: int = 256, num_class: int = 128,
-                 pooling_size: int = 1):
+                 pooling_size: int = 1, latent_channels: int = None,
+                 nd: int = 2):
+        latent_channels = latent_channels or input_channels
         super().__init__(
-            nn.Linear(input_channels * pooling_size ** 2, input_channels),
+            nn.Linear(latent_channels * pooling_size ** nd, input_channels),
             nn.Linear(input_channels, num_class))
         self.pooling_size = pooling_size
 
@@ -182,9 +191,10 @@ class LatentPredictor(nn.Sequential):
 
 
 class OutputsPredictor(_Conv1x1Stack):
-    """Two 1x1 convs with bias over channels-last class maps
-    (model_2D.py:157-160)."""
+    """Two 1x1 convs with bias over channels-last class maps with ``nd``
+    spatial dims (model_2D.py:157-160)."""
 
-    def __init__(self, num_classes: int = 4):
-        super().__init__(nn.Conv2d(num_classes, num_classes, 1),
-                         nn.Conv2d(num_classes, num_classes, 1))
+    def __init__(self, num_classes: int = 4, nd: int = 2):
+        conv = CONV[nd]
+        super().__init__(conv(num_classes, num_classes, 1),
+                         conv(num_classes, num_classes, 1))

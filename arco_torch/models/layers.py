@@ -157,8 +157,10 @@ class BilinearUp(nn.Module):
 
 
 def adaptive_avg_pool(x, out_size: int):
-    """torch AdaptiveAvgPool over the spatial dims of NCHW ``x`` (counterpart
-    of arco_tpu/models/layers.py:adaptive_avg_pool, which is channels-last):
-    output cell i averages input rows floor(i*n/o) .. ceil((i+1)*n/o), so
-    sizes that do not divide are covered too."""
-    return F.adaptive_avg_pool2d(x, out_size)
+    """torch AdaptiveAvgPool over the 2 or 3 spatial dims of [B, C,
+    *spatial] ``x`` (counterpart of arco_tpu/models/layers.py:
+    adaptive_avg_pool, which is channels-last): output cell i averages
+    input rows floor(i*n/o) .. ceil((i+1)*n/o), so sizes that do not divide
+    are covered too."""
+    pool = {4: F.adaptive_avg_pool2d, 5: F.adaptive_avg_pool3d}[x.ndim]
+    return pool(x, out_size)

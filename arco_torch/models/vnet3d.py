@@ -65,6 +65,7 @@ class VNet(nn.Module):
         self.n_classes = n_classes
         self.has_dropout = has_dropout
         nf = n_filters
+        self.latent_channels = 8 * nf     # feature_map[0], the latent
         # (stages, in, out) of block_one .. block_nine
         blocks = ((1, n_channels, nf), (2, 2 * nf, 2 * nf),
                   (3, 4 * nf, 4 * nf), (3, 8 * nf, 8 * nf),

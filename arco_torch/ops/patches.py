@@ -1,13 +1,15 @@
-"""Loop-free patch grids over channels-last maps, 2D (counterpart of
-arco_tpu/ops/patches.py, its 2D part).
+"""Loop-free patch grids over channels-last maps, 2D and 3D (counterpart of
+arco_tpu/ops/patches.py).
 
-The reference slides a half-overlap window over the logits with a nested
-Python loop (model_2D.py:265-268) and runs the heads on each patch. Here the
-grid is one strided view (``extract_patches_2d``), and the pooled grid the
+The reference slides a half-overlap window over the logits with nested
+Python loops (model_2D.py:265-268; ~700 windows in 3D, model_3D.py:355-359)
+and runs the heads on each patch. Here the grid is one strided view
+(``extract_patches_2d`` / ``extract_patches_3d``), and the pooled grid the
 ISD heads read is computed from per-axis prefix sums without extracting
-the patches (``pooled_patch_grid``). Inputs are [N, H, W, C] as in JAX;
-pass a model's NCHW logits as ``x.permute(0, 2, 3, 1)`` (a view). The
-patch order is the reference's row-major order over the grid.
+the patches (``pooled_patch_grid``). Inputs are channels-last [N, *spatial,
+C] as in JAX; pass a model's [B, C, *spatial] logits as ``x.movedim(1,
+-1)`` (a view). The patch order is the reference's row-major order over
+the grid (in 3D: d-major, then h, then w).
 """
 
 from __future__ import annotations
@@ -26,6 +28,17 @@ def extract_patches_2d(x: torch.Tensor, patch: int, step: int):
     # [N, Py, Px, C, patch(y), patch(x)], a view
     out = x.unfold(1, patch, step).unfold(2, patch, step)
     return out.permute(0, 1, 2, 4, 5, 3).reshape(n, -1, patch, patch, c)
+
+
+def extract_patches_3d(x: torch.Tensor, patch: int, step: int):
+    """[N, D, H, W, C] -> [N, P, patch, patch, patch, C], in the triple-loop
+    order of model_3D.py:355-359 (d-major, then h, then w)."""
+    n, c = x.shape[0], x.shape[-1]
+    # [N, Pd, Ph, Pw, C, patch(d), patch(h), patch(w)], a view
+    out = x.unfold(1, patch, step).unfold(2, patch, step) \
+        .unfold(3, patch, step)
+    return out.permute(0, 1, 2, 3, 5, 6, 7, 4).reshape(
+        n, -1, patch, patch, patch, c)
 
 
 def _pool_bounds(patch: int, out: int, device=None):
@@ -57,14 +70,18 @@ def _axis_window_means(x: torch.Tensor, axis: int, size: int, patch: int,
 
 def pooled_patch_grid(x: torch.Tensor, patch: int, step: int,
                       out_size: int):
-    """adaptive_avg_pool(extract_patches_2d(x), out_size) without extracting
-    the patches: [N, H, W, C] -> [N, P, out, out, C]. Every pooled cell is
-    a box mean, so two per-axis prefix sums and boundary gathers give it
-    directly (last spatial axis first, as JAX does, each pass cast back to
-    x's dtype)."""
-    n, h, w, c = x.shape
-    x = _axis_window_means(x, 2, w, patch, step, out_size)
-    x = _axis_window_means(x, 1, h, patch, step, out_size)
-    # [N, Py, out, Px, out, C] -> [N, Py, Px, out, out, C]
-    x = x.permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(n, -1, out_size, out_size, c)
+    """adaptive_avg_pool(extract_patches_{2,3}d(x), out_size) without
+    extracting the patches: [N, *spatial, C] -> [N, P, out, ..., out, C]
+    for 2 or 3 spatial dims. Every pooled cell is a box mean, so per-axis
+    prefix sums and boundary gathers give it directly (last spatial axis
+    first, so the earlier axes keep their positions, as JAX does; each
+    pass cast back to x's dtype)."""
+    nd = x.ndim - 2
+    n, c = x.shape[0], x.shape[-1]
+    for axis in range(nd, 0, -1):
+        x = _axis_window_means(x, axis, x.shape[axis], patch, step,
+                               out_size)
+    # [N, P1, out, P2, out, (P3, out,) C] -> [N, P1, P2, (P3,) out, ..., C]
+    perm = (0,) + tuple(range(1, 2 * nd, 2)) + tuple(range(2, 2 * nd + 1, 2))
+    x = x.permute(*perm, 2 * nd + 1)
+    return x.reshape((n, -1) + (out_size,) * nd + (c,))

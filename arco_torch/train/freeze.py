@@ -1,8 +1,9 @@
 """Encoder/decoder freeze surface of the pretrain (``--train_encoder`` /
 ``--train_decoder``; counterpart of arco_tpu/train/freeze.py).
 
-Reference: pretrain_2D.py:71-72 expose the flags, unetWithArgs.py:326-343
-sets ``requires_grad=False`` on the frozen half of the U-Net, and the
+Reference: pretrain_2D.py:71-72 / pretrain_3D.py:73-74 expose the flags,
+unetWithArgs.py:326-343 sets ``requires_grad=False`` on the frozen half of
+the U-Net (model_3D.py:103-106 of the V-Net), and the
 snapshot directory gets a ``_train_encoder`` / ``_train_decoder`` suffix
 in place of ``final`` (pretrain_2D.py:313-320). In torch idiom the frozen
 half's parameters get ``requires_grad_(False)`` and stay out of the
@@ -29,16 +30,33 @@ def snapshot_suffix(train_encoder: bool = True,
     return "_frozen"
 
 
+# the V-Net's encoder (vnetWithArgs.py:180-201): the first five conv
+# blocks and the four downsamplings; every other top-level module (the
+# upsamplings, block_six..block_nine, out_conv) is its decoder
+_VNET_ENCODER = tuple(f"block_{n}" for n in ("one", "two", "three", "four",
+                                               "five")) \
+    + tuple(f"block_{n}_dw" for n in ("one", "two", "three", "four"))
+_VNET_DECODER = ("block_five_up", "block_six_up", "block_seven_up",
+                 "block_eight_up", "block_six", "block_seven", "block_eight",
+                 "block_nine", "out_conv")
+
+
 def _part_of(name: str) -> str:
-    """Classify a parameter of the port's U-Net by its top-level module
-    (``encoder.*`` / ``decoder.*``), the backbone the reference's freeze
-    flags reach (net_factory_args.py:14-17)."""
+    """Classify a parameter of the port's U-Net (``encoder.*`` /
+    ``decoder.*``) or V-Net (models/vnet3d.py names) by its top-level
+    module: the two backbones the reference's freeze flags reach
+    (net_factory_args.py:14-17, model_3D.py:103-106). Any other model
+    raises, as JAX's freeze.py does (the 3-D U-Nets among them)."""
     top = name.split(".", 1)[0]
     if top in ("encoder", "decoder"):
         return top
+    if top in _VNET_ENCODER:
+        return "encoder"
+    if top in _VNET_DECODER:
+        return "decoder"
     raise ValueError(
         f"cannot classify parameter {name!r} as encoder/decoder; "
-        "--train_encoder/--train_decoder support the unet backbone")
+        "--train_encoder/--train_decoder support the unet/vnet backbones")
 
 
 def model_param_labels(model: torch.nn.Module, train_encoder: bool,

@@ -1,14 +1,18 @@
-"""Stage-1 ISD pretraining step, 2D (counterpart of
+"""Stage-1 ISD pretraining step, 2D and 3D (counterpart of
 arco_tpu/train/pretrain.py).
 
 Momentum-teacher self-distillation with two MoCo-style queues: a latent
 queue [K, latent_feature_size] and a patch-descriptor queue [K, P, F]
-(pretrain_2D.py:146-300, model_2D.py:115-311). One step, in the JAX order:
+(pretrain_2D.py:146-300, model_2D.py:115-311; pretrain_3D.py, model_3D.py
+ISD_3d). One step, in the JAX order:
   teacher EMA (model, latent head, outputs head) from the pre-update student
   -> student forward, teacher forward (train mode: both update their own
-     BatchNorm statistics)
-  -> patch descriptors [B, P, F] from the pooled 8x8 cells of the 64x64
-     half-overlap grid of the logits, each flattened in (h, w, c) order
+     BatchNorm statistics and draw their own dropout masks)
+  -> patch descriptors [B, P, F] from the pooled cells of the half-overlap
+     patch grid of the logits (2D: 49 patches of 64x64 pooled to 8x8; 3D at
+     112x112x80: 700 patches of 20^3 pooled to 8^3, F = 2 * 8^3), each
+     flattened in (h, w, c) / (x, y, z, c) order, so a JAX queue_mask
+     carries across unchanged
   -> cosine logits of student and teacher against the queues
   -> CE + Dice on the labeled sub-batch + k1 * KLD(latent) + k2 * KLD(output)
      (k1 * KLD(latent) alone when only the encoder trains)
@@ -57,15 +61,24 @@ def make_isd_modules(model, num_classes: int, latent_feature_size: int = 512,
                      latent_pooling_size: int = 1,
                      output_pooling_size: int = 8,
                      latent_channels: int = 256) -> ISDModules:
+    """The heads of ``model`` (2D, or 3D when its ``spatial_dims`` is 3).
+    ``latent_channels`` is the latent head's hidden width (JAX's
+    ``input_channels``); its input width is the channel count of the
+    model's latent: the model's ``latent_channels`` attribute (the V-Net's
+    128, UNet3D's 256), else ``latent_channels`` (the 2D U-Net's 256)."""
+    nd = getattr(model, "spatial_dims", 2)
+    latent_width = getattr(model, "latent_channels", latent_channels)
     return ISDModules(
         model=model,
         latent_head=LatentMLP(input_channels=latent_channels,
                               num_class=latent_feature_size,
-                              pooling_size=latent_pooling_size),
+                              pooling_size=latent_pooling_size,
+                              latent_channels=latent_width, nd=nd),
         latent_predictor=LatentPredictor(feature_size=latent_feature_size),
         outputs_head=ProjectionHead(num_classes, proj_dim=num_classes,
-                                    output_pooling_size=output_pooling_size),
-        outputs_predictor=OutputsPredictor(num_classes=num_classes))
+                                    output_pooling_size=output_pooling_size,
+                                    nd=nd),
+        outputs_predictor=OutputsPredictor(num_classes=num_classes, nd=nd))
 
 
 # the (teacher, student) pairs of the EMA: not the predictors
@@ -112,8 +125,8 @@ def init_pretrain_state(modules: ISDModules, cfg, input_shape,
                         compute_dtype=torch.bfloat16) -> PretrainState:
     """Move the modules to ``device``, copy the teacher, draw both queues
     and build the optimizer over what trains (``cfg``: config.ISDConfig,
-    whose train_encoder/train_decoder freeze a half of the U-Net).
-    input_shape: NCHW. The module weights are the ones the modules were
+    whose train_encoder/train_decoder freeze a half of the U-Net or V-Net).
+    input_shape: [B, C, *spatial]. The module weights are the ones the modules were
     built with; ``seed`` drives the queues and every later draw."""
     device = resolve_device(device)
     optim = optim or OptimConfig()
@@ -149,8 +162,8 @@ def init_pretrain_state(modules: ISDModules, cfg, input_shape,
 
 def _patch_descriptors(head, logits, patch: int, step: int, pool: int,
                        predictor=None):
-    """NCHW logits -> per-patch descriptors [B, P, F], each pooled cell
-    flattened in (h, w, c) order."""
+    """[B, C, *spatial] logits -> per-patch descriptors [B, P, F], each
+    pooled cell flattened in (h, w, c) / (x, y, z, c) order."""
     pooled = pooled_patch_grid(_nhwc(logits), patch, step, pool)
     b, p = pooled.shape[:2]
     out = head(pooled.reshape((b * p,) + pooled.shape[2:]), pre_pooled=True)
@@ -225,10 +238,13 @@ def make_pretrain_step(cfg, labeled_bs: int, num_classes: int,
     """Returns step(state, batch, draws=None) -> metrics, which updates
     ``state`` in place.
 
-    batch: student_image, teacher_image [B, C, H, W]; label [B, H, W] int.
+    batch: student_image, teacher_image [B, C, *spatial]; label [B,
+    *spatial] int.
     draws (optional): {"dropout": {"student": masks, "teacher": masks}},
-    each a list of one keep-mask per encoder block (models/unet2d.py);
-    missing ones come from ``state.generator``."""
+    each the model's list of keep-masks: one per encoder block of the 2D
+    U-Net (models/unet2d.py), [x5, x9] of the V-Net, those of
+    ``draw_dropout_masks`` for UNet3D; missing ones come from
+    ``state.generator``."""
     device = resolve_device(device)
     optim = optim or OptimConfig()
 

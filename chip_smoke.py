@@ -54,10 +54,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (d) ``train_arco_3d.train`` 4 steps on six in-memory 128x128x96 volumes
    from the GPU volume bank (log and checkpoint every 2, so both step
    functions run), a rerun to 6 from full_iter_4, and the on-card
-   sliding-window evaluation of iter_6 on one volume.
+   sliding-window evaluation of iter_6 on one volume;
+9. drive the 3D two-stage path and the 3-D U-Nets: (a) one small 3D
+   stage-1 step (V-Net with dropout, 32x32x16, patch 16) on the card in
+   bf16 against the CPU in f32 from one state, batch and set of dropout
+   masks, at phase 4's tolerance; (b) ``pretrain_3d.train`` at its
+   ``default_3d_config`` (V-Net, 112x112x80, 700 patches of 20^3 pooled to
+   8^3, K=36 queues, latent 512, bs 2+2) on six in-memory 128x128x96
+   volumes from the GPU volume bank, logging and checkpointing every 2: 4
+   steps, a rerun to 6 from iter_4 (every loss finite, both queue pointers
+   at 24, no kernel launched), then ``train_arco_3d --resume`` for 2 steps
+   from its iter_6, each kernel launching once a step; (c)
+   ``pretrain_3d --model unet_3D`` for 2 steps, one train-mode forward and
+   backward of AttentionUNet3D and of UNet3DDVSemi at bs 2, 112x112x80, a
+   small eval-mode forward of each 3-D U-Net against the CPU, and
+   ``test_3d --model unet_3D`` on one 128x128x96 volume.
 
 It then prints one JSON line with the phases' numbers, one with the
-kernels' numbers (each with its 3D record under "3d"; pool_sims also at 16
+kernels' numbers (each with its 3D record under "3d", whose
+"launches_two_stage" counts phase 9's handoff leg; pool_sims also at 16
 query rows under "rows16") and, last, the device line. Without a CUDA GPU, or
 without the repository beside it, it prints no result and exits non-zero.
 
@@ -1219,6 +1234,250 @@ def phase_cli_3d(device, workdir):
                     "eval_per_class": res["per_class"].tolist()}
 
 
+def _pretrain_reference_3d(device):
+    """One small 3D stage-1 step (V-Net with its dropout, 32x32x16, bs 2
+    with 1 labeled, patch 16 pooled to 4^3) on ``device`` in bf16 against
+    the same step on the CPU in f32: the same weights, queues, batch and
+    dropout masks (drawn on the CPU); phase 4's tolerance per loss term."""
+    import torch
+    from arco_torch.config import ISDConfig
+    from arco_torch.models import net_factory_3d
+    from arco_torch.train import pretrain
+    size, b = (32, 32, 16), 2
+    cfg = ISDConfig(K=4, latent_feature_size=64, output_pooling_size=4,
+                    patch_size=16)
+
+    def build(dev, dtype):
+        torch.manual_seed(1)
+        mods = pretrain.make_isd_modules(
+            net_factory_3d("vnet", in_chns=1, class_num=2), 2,
+            latent_feature_size=64, output_pooling_size=4)
+        state = pretrain.init_pretrain_state(mods, cfg, (b, 1) + size,
+                                             seed=1, device=dev,
+                                             compute_dtype=dtype)
+        return state, pretrain.make_pretrain_step(cfg, 1, 2, 100,
+                                                  device=dev)
+
+    ref_state, ref_step = build("cpu", torch.float32)
+    state, step = build(device, torch.bfloat16)
+    state.queue.copy_(ref_state.queue)
+    state.queue_mask.copy_(ref_state.queue_mask)
+    gen = torch.Generator().manual_seed(2)
+    image, label = _synthetic_volumes(b, size, gen, "cpu")
+    teacher = image + 0.05 * torch.randn(image.shape, generator=gen)
+    batch = {"student_image": image, "teacher_image": teacher,
+             "label": label}
+    masks = {who: ref_state.model.draw_dropout_masks((b, 1) + size, gen)
+             for who in ("student", "teacher")}
+    want = ref_step(ref_state, batch, {"dropout": masks})
+    got = step(state, _to(batch, device), {"dropout": _to(masks, device)})
+    for k in want:
+        g, w = float(got[k]), float(want[k])
+        _log(f"  reference (3D pretrain) {k}: card {g:.6f} cpu {w:.6f}")
+        if not abs(g - w) <= 2e-2 + 5e-2 * abs(w):
+            raise AssertionError(f"3D pretrain {k}: card {g} vs cpu {w}")
+    if (state.queue_ptr, state.mask_queue_ptr) != (2, 2):
+        raise AssertionError("3D pretrain: the queue pointers are off")
+
+
+def phase_pretrain_3d(device, workdir):
+    """The 3D two-stage path: (a) a small 3D stage-1 step against the CPU;
+    (b) pretrain_3d.train at default_3d_config (V-Net, 112x112x80, 700
+    patches of 20^3 pooled to 8^3, K=36, latent 512, bs 2+2) on six
+    in-memory 128x128x96 volumes from the GPU volume bank, logging and
+    checkpointing every 2: 4 steps, a rerun to 6 from iter_4, then
+    train_arco_3d --resume for 2 steps from its iter_6."""
+    import numpy as np
+    import torch
+    from arco_torch.cli import pretrain_3d, train_arco_3d
+    from arco_torch.data.datasets import InMemoryVolumes
+    from arco_torch.data.synthetic import la_volume
+    from arco_torch.kernels import launch_counts, reset_launch_counts
+    from arco_torch.train import pretrain
+    _pretrain_reference_3d(device)
+    rs = np.random.RandomState(3)
+    vols = [la_volume(rs, CLI3D_SIZE) for _ in range(CLI3D_VOLUMES)]
+    model_dir = str(workdir / "pretrain3d")
+    exp = "LA/pretrain"
+    common = ["--labeled_num", str(CLI3D_LABELED), "--snapshot_dir",
+              model_dir, "--log_every", "2", "--ckpt_every", "2"]
+
+    def run_pretrain(iterations):
+        cfg, snap = pretrain_3d.parse(
+            common + ["--exp", exp, "--max_iterations", str(iterations)])
+        pretrain_3d.train(cfg, snap, dataset=InMemoryVolumes(
+            vols, cfg.data.patch_size))
+        return cfg, Path(snap)
+
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run_pretrain(4)
+    t1 = time.perf_counter()
+    cfg, run = run_pretrain(6)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    if any(launch_counts().values()):
+        raise AssertionError(f"3D stage 1 launched kernels: "
+                             f"{launch_counts()}")
+    log = (run / "log.txt").read_text()
+    for want in (f"device data path: {CLI3D_VOLUMES} volumes staged on "
+                 f"{device}", "resuming pretrain state from iter_4",
+                 "iteration 6 : loss"):
+        if want not in log:
+            raise AssertionError(f"3D pretrain: log.txt lacks {want!r}")
+    rows = [json.loads(line)
+            for line in (run / "metrics.jsonl").read_text().splitlines()]
+    terms = ("loss", "loss_ce", "loss_dice", "loss_latent", "loss_output")
+    if [r["step"] for r in rows] != [2, 4, 6] or not all(
+            math.isfinite(r[k]) for r in rows for k in terms):
+        raise AssertionError(f"3D pretrain: metrics {rows}")
+    tree = torch.load(run / "iter_6" / "state.pt", map_location="cpu",
+                      weights_only=True)
+    ptrs = (tree["queue_ptr"], tree["mask_queue_ptr"])
+    bs, isd = cfg.data.batch_size, cfg.isd
+    # at the defaults [36, 700, 1024]: 10 * 10 * 7 patches of 2 * 8^3
+    queue_mask = (isd.K, pretrain._num_patches(
+        cfg.data.patch_size, isd.patch_size, isd.patch_size // 2),
+        cfg.data.num_classes * isd.output_pooling_size ** 3)
+    if tree["step"] != 6 or ptrs != (6 * bs % isd.K,) * 2 \
+            or tuple(tree["queue_mask"].shape) != queue_mask:
+        raise AssertionError(f"3D pretrain: step {tree['step']}, queue "
+                             f"pointers {ptrs}, queue_mask "
+                             f"{tuple(tree['queue_mask'].shape)}")
+    vps = [r["volumes_per_sec"] for r in rows]
+    step_ms = [1e3 * bs / v for v in vps]
+    _log(f"3D pretrain: 4 steps in {t1 - t0:.1f} s, resumed to 6 in "
+         f"{t2 - t1:.1f} s (set-up included); queue pointers {ptrs}")
+    _log(f"3D pretrain vol/s per 2-step log interval "
+         f"{[round(v, 3) for v in vps]} (ms a step "
+         f"{[round(t, 2) for t in step_ms]}); peak memory "
+         f"{peak / 2**30:.2f} GiB")
+
+    reset_launch_counts()
+    cfg2, snap2 = train_arco_3d.parse(common + [
+        "--exp", "LA/arco", "--resume", exp, "--max_iterations", "2",
+        "--log_every", "1"])
+    train_arco_3d.train(cfg2, snap2, dataset=(
+        InMemoryVolumes(vols[:CLI3D_LABELED], PATCH_3D),
+        InMemoryVolumes(vols[CLI3D_LABELED:], PATCH_3D)))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log2 = (Path(snap2) / "log.txt").read_text()
+    if "loading stage-1 checkpoint iter_6" not in log2:
+        raise AssertionError("3D stage 2: log.txt lacks the stage-1 handoff")
+    rows2 = [json.loads(line) for line in
+             (Path(snap2) / "metrics.jsonl").read_text().splitlines()]
+    if len(rows2) != 2 or not all(math.isfinite(r["loss"]) for r in rows2):
+        raise AssertionError(f"3D stage 2: metrics {rows2}")
+    _log(f"3D stage 2 from the pretrain's iter_6: losses "
+         f"{[r['loss'] for r in rows2]}; launches {counts}")
+    for name, n in counts.items():
+        if n != 2:
+            raise AssertionError(f"3D stage 2: {name} launched {n} times "
+                                 "in 2 steps")
+    return counts, vols, {"pretrain_volumes_per_sec": vps,
+                          "pretrain_step_ms": step_ms,
+                          "pretrain_peak_gib": peak / 2**30,
+                          "stage2_losses": [r["loss"] for r in rows2]}
+
+
+def phase_unet3d(device, workdir, vols):
+    """The 3-D U-Nets at full width: pretrain_3d --model unet_3D for 2
+    steps; one train-mode forward and backward of AttentionUNet3D and of
+    UNet3DDVSemi at bs 2, 112x112x80 (bf16 autocast); a small eval-mode
+    forward of each model against the CPU (f32, TF32 off, atol 1e-4); and
+    test_3d --model unet_3D on one 128x128x96 volume."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from arco_torch.cli import pretrain_3d, test_3d
+    from arco_torch.data.datasets import InMemoryVolumes
+    from arco_torch.models import net_factory_3d
+    model_dir = str(workdir / "unet3d")
+    cfg, snap = pretrain_3d.parse([
+        "--exp", "LA/unet3d", "--model", "unet_3D", "--labeled_num",
+        str(CLI3D_LABELED), "--snapshot_dir", model_dir, "--max_iterations",
+        "2", "--log_every", "1", "--ckpt_every", "2"])
+    pretrain_3d.train(cfg, snap, dataset=InMemoryVolumes(vols, PATCH_3D))
+    rows = [json.loads(line) for line in
+            (Path(snap) / "metrics.jsonl").read_text().splitlines()]
+    if len(rows) != 2 or not all(math.isfinite(r[k]) for r in rows
+                                 for k in ("loss", "loss_latent",
+                                           "loss_output")):
+        raise AssertionError(f"unet_3D pretrain: metrics {rows}")
+    out = {"unet_3D_pretrain_losses": [r["loss"] for r in rows],
+           "unet_3D_pretrain_volumes_per_sec":
+               [r["volumes_per_sec"] for r in rows]}
+    _log(f"unet_3D pretrain: losses {out['unet_3D_pretrain_losses']}, "
+         f"vol/s {out['unet_3D_pretrain_volumes_per_sec']}")
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    x, _ = _synthetic_volumes(2, PATCH_3D, gen, device)
+    for name in ("attention_unet", "unet_3D_dv_semi"):
+        torch.manual_seed(0)
+        model = net_factory_3d(name, in_chns=1, class_num=2).to(device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(2):      # the first call selects cuDNN's algorithms
+            model.zero_grad(set_to_none=True)
+            t0 = time.perf_counter()
+            with torch.autocast(device.type, dtype=torch.bfloat16):
+                y = model(x)
+            outs = y if name == "unet_3D_dv_semi" else y[:1]
+            loss = sum(o.float().square().mean() for o in outs)
+            loss.backward()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        grads = [p.grad for p in model.parameters()]
+        if not (math.isfinite(float(loss.detach())) and all(
+                g is not None and bool(torch.isfinite(g).all())
+                for g in grads)):
+            raise AssertionError(f"{name}: non-finite loss or gradients")
+        peak = torch.cuda.max_memory_allocated()
+        out[f"{name}_fwd_bwd"] = {"ms": ms, "peak_gib": peak / 2**30}
+        _log(f"{name} train-mode forward + backward at [2, 1, "
+             f"{PATCH_3D}]: {[round(t, 1) for t in ms]} ms (two calls), "
+             f"peak {peak / 2**30:.2f} GiB")
+        del model, y, outs, loss, grads
+    torch.cuda.empty_cache()
+
+    xs = torch.randn((1, 1, 48, 48, 32),
+                     generator=torch.Generator().manual_seed(7))
+    for name in ("unet_3D", "unet_3D_dv_semi", "attention_unet"):
+        torch.manual_seed(0)
+        model = net_factory_3d(name, in_chns=1, class_num=2).eval()
+        with torch.no_grad():
+            want = model(xs)[0]
+            got = model.to(device)(xs.to(device))[0].cpu()
+        err = (got - want).abs().max().item()
+        _log(f"  reference ({name} eval forward): max err {err:.3g}")
+        if not err <= 1e-4 + 1e-4 * want.abs().max().item():
+            raise AssertionError(f"{name}: card vs cpu max err {err}")
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = test_3d.main([
+            "--exp", "LA/unet3d", "--model", "unet_3D", "--labeled_num",
+            str(CLI3D_LABELED), "--snapshot_dir", model_dir, "--device",
+            device.type],
+            dataset=InMemoryVolumes(vols[:1], PATCH_3D))
+    eval_s = time.perf_counter() - t0
+    metrics = res["per_class"][0]
+    _log(f"test_3d --model unet_3D on one {CLI3D_SIZE} volume in "
+         f"{eval_s:.2f} s: (dice, jc, hd95, asd) {metrics.tolist()}")
+    if not (np.isfinite(res["raw"]).all() and 0 <= metrics[0] <= 1
+            and 0 <= metrics[1] <= 1 and (metrics[2:] >= 0).all()):
+        raise AssertionError(f"test_3d unet_3D: eval gave {metrics}")
+    out["unet_3D_eval"] = {"s": eval_s, "per_class": metrics.tolist()}
+    return out
+
+
 def main():
     try:
         import torch
@@ -1252,16 +1511,21 @@ def main():
         phase_reference_3d(device)
         counts_3d, main_path_3d = phase_main_path_3d(device)
         cli3d_counts, cli_3d = phase_cli_3d(device, workdir)
+        two3d_counts, vols, two_stage_3d = phase_pretrain_3d(device,
+                                                             workdir)
+        unet3d = phase_unet3d(device, workdir, vols)
     for k in kernels:
         name = k["name"]
         k["launches"] = counts[name]
         k["launches_cli"] = cli_counts[name]
         k["launches_two_stage"] = two_counts[name]
         k["3d"] = {**kernels_3d[name], "launches": counts_3d[name],
-                   "launches_cli": cli3d_counts[name]}
+                   "launches_cli": cli3d_counts[name],
+                   "launches_two_stage": two3d_counts[name]}
     print(json.dumps({"main_path": main_path, "cli": cli,
                       "two_stage": two_stage, "main_path_3d": main_path_3d,
-                      "cli_3d": cli_3d}))
+                      "cli_3d": cli_3d, "two_stage_3d": two_stage_3d,
+                      "unet3d": unet3d}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

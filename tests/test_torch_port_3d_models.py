@@ -142,9 +142,14 @@ def test_conv_transpose_up_carries_the_flipped_kernel():
 
 
 def test_net_factory_3d_ports_vnet_only():
+    """The V-Net and (since the 3D stage-1 slice) the 3-D U-Nets build;
+    voxresnet and nnUNet still raise."""
     assert net_factory_3d("vnet").has_dropout
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        net_factory_3d("unet_3D")
+    from arco_torch.models import unet3d
+    assert isinstance(net_factory_3d("unet_3D"), unet3d.UNet3D)
+    for name in ("voxresnet", "nnUNet"):
+        with pytest.raises(NotImplementedError, match="Queue A item 4"):
+            net_factory_3d(name)
 
 
 # ----------------------------------------------------------------- V-Net

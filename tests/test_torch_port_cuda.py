@@ -1,8 +1,9 @@
 """The port on the card: the CUDA kernels against their plain PyTorch
 versions (also at the 3D path's shapes), the GPU slice and volume banks
 against the host pipeline, the strong augmentations against the CPU, a
-small pretrain step against the CPU, and the stage-2 step with ``remat``
-against the step without it.
+small pretrain step against the CPU, the stage-2 step with ``remat``
+against the step without it, and the 3D pretrain's pooled patch grid and
+the 3-D U-Nets' forwards against the CPU.
 
 Every test here needs a CUDA GPU and skips without one. This file imports
 nothing of JAX, so it also runs where JAX is not installed:
@@ -376,3 +377,56 @@ def test_remat_on_the_card_matches_remat_off(cuda):
             torch.testing.assert_close(sb[k], sa[k], rtol=1e-3, atol=1e-6)
         elif "num_batches" in k:
             assert torch.equal(sb[k], sa[k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_3d_pooled_patch_grid_on_the_card_matches_the_cpu(cuda, dtype):
+    """The 3-D pretrain's pooled patch grid (700 patches of 20^3 pooled to
+    8^3 over [2, 112, 112, 80, 2] logits), values and gradients: f32
+    prefix sums on both devices, so atol 1e-5 in f32; in bf16 each pass
+    rounds its means once to bf16 (ulp 2^-8 at 1-2), so atol 2e-2."""
+    from arco_torch.ops.patches import pooled_patch_grid
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 112, 112, 80, 2), generator=gen).to(dtype)
+    w = torch.randn((2, 700, 8, 8, 8, 2), generator=gen)
+    outs = []
+    for dev in ("cpu", cuda):
+        xd = x.detach().to(dev).requires_grad_()
+        y = pooled_patch_grid(xd, 20, 10, 8)
+        (y.float() * w.to(dev)).sum().backward()
+        outs.append((y.detach().float().cpu(), xd.grad.float().cpu()))
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for got, want in zip(outs[1], outs[0]):
+        torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    assert outs[0][0].shape == (2, 700, 8, 8, 8, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["unet_3D", "unet_3D_dv_semi",
+                                  "attention_unet"])
+def test_unet3d_forward_on_the_card_matches_the_cpu(cuda, name):
+    """An eval-mode forward at 64x64x32, bs 2: f32 with TF32 off against
+    the CPU at atol 1e-4 (cuDNN's and the CPU's convolutions sum in another
+    order; the InstanceNorms of the small maps amplify it, as in the CPU
+    tests against JAX); and under bf16 autocast (8-bit mantissa through
+    some 20 layers) within 1e-1 of the f32 logits in relative L2 norm
+    (5.2e-2 for UNet3D and 5.8e-2 for UNet3DDVSemi measured on an
+    H100)."""
+    from arco_torch.models import net_factory_3d
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(0)
+    model = net_factory_3d(name, in_chns=1, class_num=2).eval()
+    x = torch.randn((2, 1, 64, 64, 32),
+                    generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = model(x)
+        model.to(cuda)
+        got = model(x.to(cuda))
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            got_bf = model(x.to(cuda))
+    # the logits, or the dv_semi model's finest supervision output
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-4, atol=1e-4)
+    rel = (got_bf[0].float().cpu() - want[0]).norm() / want[0].norm()
+    assert rel <= 1e-1, rel
