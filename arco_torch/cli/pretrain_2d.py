@@ -9,7 +9,11 @@ Stage 2 then starts from its newest checkpoint:
     python -m arco_torch.cli.train_arco_2d --root_path ../data/ACDC \
         --exp ACDC/arco --labeled_num 7 --resume ACDC/pretrain
 
-It runs on the card unless given ``--device cpu``. The slices are staged on
+It runs on the card unless given ``--device cpu``. ``--model`` takes the
+keys whose forward is (logits, latent, feature maps), as JAX's stage 1:
+unet, unet_stego, enet, pnet, efficient_unet, ViT_Seg and swin_unet
+(models/factory.py:check_model); ``--train_encoder`` / ``--train_decoder``
+only the U-Net's. The slices are staged on
 the device (data/device_bank.py) and drawn as the JAX CLI draws them. Every
 ``ckpt_every`` steps it writes the whole pretrain state to
 ``iter_<N>``, and a rerun resumes from the newest one.
@@ -31,6 +35,7 @@ from arco_torch.config import TrainConfig, parse_args, patients_to_slices
 from arco_torch.data.datasets import SliceDataset
 from arco_torch.data.samplers import TwoStreamBatchSampler
 from arco_torch.models import net_factory
+from arco_torch.models.factory import check_model
 from arco_torch.train import checkpoint as ckpt
 from arco_torch.train import freeze
 from arco_torch.train.pretrain import (init_pretrain_state, make_isd_modules,
@@ -89,6 +94,7 @@ def make_views(images, combinations: int, generator):
 def train(cfg: TrainConfig, snapshot_path: str, dataset=None):
     """``dataset``: the training slices (default: the SliceDataset of
     ``cfg.data.root_path``, as in JAX)."""
+    check_model(cfg.model, "pretrain_2d")
     device = resolve_device(cfg.device)
     os.makedirs(snapshot_path, exist_ok=True)
     logging.basicConfig(
@@ -114,7 +120,7 @@ def train(cfg: TrainConfig, snapshot_path: str, dataset=None):
 
     torch.manual_seed(cfg.seed)       # the module weights
     model = net_factory(cfg.model, in_chns=cfg.data.in_channels,
-                        class_num=num_classes)
+                        class_num=num_classes, img_size=(h, w))
     modules = make_isd_modules(
         model, num_classes=num_classes,
         latent_feature_size=cfg.isd.latent_feature_size,

@@ -5,7 +5,10 @@ arco_tpu/cli/test_2d.py; reference: test_2D.py).
         --exp ACDC/arco --labeled_num 7 --iteration 30000
 
 It reads the port's own iter_<N> checkpoints and runs on the card unless
-given ``--device cpu``.
+given ``--device cpu``. ``--model`` takes the keys whose forward is
+(logits, latent, feature maps), as JAX's ``logits, _, _ = model.apply``
+does: unet, unet_stego, enet, pnet, efficient_unet, ViT_Seg and swin_unet
+(models/factory.py:check_model).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from arco_torch.data.datasets import SliceDataset
 from arco_torch.eval.slice2d import (evaluate_2d, model_predictor,
                                      test_single_volume_2d)
 from arco_torch.models import net_factory
+from arco_torch.models.factory import check_model
 from arco_torch.train import checkpoint as ckpt
 
 
@@ -53,6 +57,7 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    check_model(args.model, "test_2d")
     device = resolve_device(args.device)
     # the f32 forward of training: no TF32 in convolutions or matmuls
     torch.backends.cudnn.allow_tf32 = False
@@ -67,8 +72,8 @@ def main(argv=None):
         raise SystemExit("--save_predictions is incompatible with a "
                          "checkpoint sweep; pass --iteration instead")
 
-    model = net_factory(args.model, in_chns=1,
-                        class_num=args.num_classes).to(device)
+    model = net_factory(args.model, in_chns=1, class_num=args.num_classes,
+                        img_size=tuple(args.input_size)).to(device)
 
     def make_predict(step):
         model.load_state_dict(ckpt.load_model_params(snapshot, step))

@@ -8,7 +8,9 @@ flags work directly, e.g.
         --exp ACDC/arco --labeled_num 7 --max_iterations 30000
 
 plus dotted overrides for every config field (--arco.num_queries 256). It
-runs on the card unless given ``--device cpu``. The training slices are
+runs on the card unless given ``--device cpu``. ``--model`` takes the keys
+whose feature maps the ARCO FeatureExtractor fuses, as in JAX: ``unet``
+and ``unet_stego`` (models/factory.py:check_model). The training slices are
 staged on the device (data/device_bank.py) unless they do not fit its
 square-slice rule; the step's losses stay on the device and are read only
 every ``log_every`` and ``ckpt_every`` steps. A rerun resumes from the
@@ -31,6 +33,7 @@ from arco_torch.config import TrainConfig, parse_args, patients_to_slices
 from arco_torch.data.datasets import SliceDataset, SynapseDataset
 from arco_torch.data.pipeline import Prefetcher, TwoStreamPipeline
 from arco_torch.models import net_factory
+from arco_torch.models.factory import check_model
 from arco_torch.train import checkpoint as ckpt
 from arco_torch.train.arco2d import (init_arco_state, make_arco_modules,
                                      make_arco_step)
@@ -216,6 +219,9 @@ def run_loop(cfg: TrainConfig, snapshot_path: str, state, batches,
 
 
 def train(cfg: TrainConfig, snapshot_path: str):
+    # the ARCO FeatureExtractor fuses the U-Net's five maps: the keys JAX's
+    # stage 2 runs (unet, unet_stego)
+    check_model(cfg.model, "train_arco_2d")
     device = start_run(cfg, snapshot_path)
     num_classes = cfg.data.num_classes
     h, w = cfg.data.patch_size

@@ -17,9 +17,14 @@ convert_q_representation_state_dict) without importing it:
 - the random pool [K, *spatial, C] is already the port's layout
   (channels-last reps, see models/heads.py) and is copied as it is.
 
-The model is the 2D U-Net, the 3D V-Net or one of the 3-D U-Nets (module
-names of models/unet2d.py, models/vnet3d.py and models/unet3d.py), told
-apart by the flax tree.
+- flax's attention (q/k/v kernels [hidden, heads, head_dim], out kernel
+  [heads, head_dim, hidden]) -> query/key/value/out Linear layers;
+- LayerNorm / GroupNorm scale/bias -> weight/bias.
+
+The model is any ported one (the 2D zoo, the 3D V-Net, the 3-D U-Nets;
+module names of arco_torch/models), told apart by the flax tree
+(``model_state_dict_from_flax``). Where the reference's names are known
+(U-Net family, PNet, ENet), the port's module names are the reference's.
 """
 
 from __future__ import annotations
@@ -45,8 +50,10 @@ def _conv_transpose(p):
     k = np.asarray(p["kernel"])
     nd = k.ndim - 2
     k = np.flip(k, axis=tuple(range(nd)))
-    return {"weight": _t(k.transpose((nd, nd + 1) + tuple(range(nd)))),
-            "bias": _t(p["bias"])}
+    out = {"weight": _t(k.transpose((nd, nd + 1) + tuple(range(nd))))}
+    if "bias" in p:
+        out["bias"] = _t(p["bias"])
+    return out
 
 
 def _put(sd, prefix, layer):
@@ -68,25 +75,331 @@ def _block(p, s, prefix, sd):
             sd[f"{prefix}.conv_conv.{idx + 1}.{k}"] = v
 
 
-def unet_state_dict_from_flax(params, batch_stats) -> dict:
-    """flax UNet (params, batch_stats) -> state_dict of models.unet2d.UNet
-    (the reference module names)."""
-    sd = {}
-    enc_p, enc_s = params["Encoder_0"], batch_stats["Encoder_0"]
+def _encoder(enc_p, enc_s, prefix, sd):
     _block(enc_p["ConvBlock2D_0"], enc_s["ConvBlock2D_0"],
-           "encoder.in_conv", sd)
+           f"{prefix}.in_conv", sd)
     depth = sum(1 for k in enc_p if k.startswith("ConvBlock2D_"))
     for k in range(1, depth):
         _block(enc_p[f"ConvBlock2D_{k}"], enc_s[f"ConvBlock2D_{k}"],
-               f"encoder.down{k}.maxpool_conv.1", sd)
-    dec_p, dec_s = params["Decoder_0"], batch_stats["Decoder_0"]
+               f"{prefix}.down{k}.maxpool_conv.1", sd)
+
+
+def _decoder(dec_p, dec_s, prefix, sd):
+    """A Decoder's tree (or UNetSTEGO's top level, which inlines one)."""
+    depth = sum(1 for k in dec_p if k.startswith("BilinearUp_")) + 1
     for k in range(1, depth):
-        for n, v in _conv(dec_p[f"BilinearUp_{k - 1}"]["Conv_0"]).items():
-            sd[f"decoder.up{k}.conv1x1.{n}"] = v
+        _put(sd, f"{prefix}.up{k}.conv1x1",
+             _conv(dec_p[f"BilinearUp_{k - 1}"]["Conv_0"]))
         _block(dec_p[f"ConvBlock2D_{k - 1}"], dec_s[f"ConvBlock2D_{k - 1}"],
-               f"decoder.up{k}.conv", sd)
-    for n, v in _conv(dec_p["Conv_0"]).items():
-        sd[f"decoder.out_conv.{n}"] = v
+               f"{prefix}.up{k}.conv", sd)
+    _put(sd, f"{prefix}.out_conv", _conv(dec_p["Conv_0"]))
+
+
+def unet_state_dict_from_flax(params, batch_stats) -> dict:
+    """flax UNet (params, batch_stats) -> state_dict of models.unet2d.UNet
+    (the reference module names); also UNetDS and UNetURPC (plus their
+    out_conv_dp* heads) and UNetCCT (main_decoder, aux_decoder1..3)."""
+    sd = {}
+    _encoder(params["Encoder_0"], batch_stats["Encoder_0"], "encoder", sd)
+    main = "main_decoder" if "aux_decoder1" in params else "decoder"
+    _decoder(params["Decoder_0"], batch_stats["Decoder_0"], main, sd)
+    for k in range(1, 4):
+        if f"aux_decoder{k}" in params:
+            _decoder(params[f"aux_decoder{k}"],
+                     batch_stats[f"aux_decoder{k}"], f"aux_decoder{k}", sd)
+    for name in ("dp3", "dp2", "dp1"):
+        if f"out_conv_{name}" in params:
+            _put(sd, f"out_conv_{name}", _conv(params[f"out_conv_{name}"]))
+    return sd
+
+
+def unet_stego_state_dict_from_flax(params, batch_stats) -> dict:
+    """flax UNetSTEGO -> models.unet2d_variants.UNetSTEGO (the inverse of
+    torch_import_zoo's convert_unet_stego_state_dict)."""
+    sd = {}
+    _encoder(params["Encoder_0"], batch_stats["Encoder_0"], "encoder", sd)
+    _decoder(params, batch_stats, "decoder", sd)
+    _put(sd, "decoder.nonLinearPro.0", _conv(params["Conv_1"]))
+    _put(sd, "decoder.nonLinearPro.2", _conv(params["Conv_2"]))
+    return sd
+
+
+def _har_block(p, s, prefix, sd):
+    for j in range(2):
+        _put(sd, f"{prefix}.conv{j + 1}", _conv(p[f"Conv_{j}"]))
+        bp, bs = p[f"BatchNormMul_{j}"], s[f"BatchNormMul_{j}"]["BatchNorm_0"]
+        _put(sd, f"{prefix}.bn{j + 1}", {
+            "gamma": _t(bp["gamma"]), "beta": _t(bp["beta"]),
+            "bn.running_mean": _t(bs["mean"]), "bn.running_var": _t(bs["var"]),
+            "bn.num_batches_tracked": torch.tensor(0)})
+
+
+def unet_har_state_dict_from_flax(params, batch_stats) -> dict:
+    """flax UNetHAR -> models.unet2d_variants.UNetHAR (the inverse of
+    torch_import_zoo's convert_unet_har_state_dict)."""
+    sd = {}
+    n = sum(1 for k in params if k.startswith("ConvBlockHAR_"))
+    depth = (n + 1) // 2
+    for k in range(depth):
+        _har_block(params[f"ConvBlockHAR_{k}"],
+                   batch_stats[f"ConvBlockHAR_{k}"],
+                   "encoder.in_conv" if k == 0 else
+                   f"encoder.down{k}.convBlock", sd)
+    for k in range(1, depth):
+        _put(sd, f"decoder.up{k}.conv1x1",
+             _conv(params[f"BilinearUp_{k - 1}"]["Conv_0"]))
+        _har_block(params[f"ConvBlockHAR_{k + depth - 1}"],
+                   batch_stats[f"ConvBlockHAR_{k + depth - 1}"],
+                   f"decoder.up{k}.conv", sd)
+    _put(sd, "decoder.out_conv", _conv(params["Conv_0"]))
+    return sd
+
+
+def pnet_state_dict_from_flax(params, batch_stats) -> dict:
+    """flax PNet2D -> models.pnet.PNet2D (the reference names; inverse of
+    torch_import_zoo's convert_pnet_state_dict)."""
+    sd = {}
+    n = sum(1 for k in params if k.startswith("PNetBlock_"))
+    for b in range(n):
+        p, s = params[f"PNetBlock_{b}"], batch_stats[f"PNetBlock_{b}"]
+        for j in range(2):
+            _put(sd, f"block{b + 1}.conv{j + 1}", _conv(p[f"Conv_{j}"]))
+            _put(sd, f"block{b + 1}.in{j + 1}",
+                 _bn(p[f"BatchNorm_{j}"], s[f"BatchNorm_{j}"]))
+    for i, name in enumerate(("catblock.conv1", "catblock.conv2",
+                              "out.conv1", "out.conv2")):
+        _put(sd, name, _conv(params[f"Conv_{i}"]))
+    return sd
+
+
+def _prelu(p):
+    return {"weight": _t(p["alpha"])}
+
+
+def _enet_seq(p, s, prefix, sd, j, torch_index=0):
+    """Conv_j, BatchNorm_j (and PReLU_j) -> ``prefix``.{i, i+1, i+2}."""
+    _put(sd, f"{prefix}.{torch_index}", _conv(p[f"Conv_{j}"]))
+    _put(sd, f"{prefix}.{torch_index + 1}",
+         _bn(p[f"BatchNorm_{j}"], s[f"BatchNorm_{j}"]))
+    if f"PReLU_{j}" in p:
+        _put(sd, f"{prefix}.{torch_index + 2}", _prelu(p[f"PReLU_{j}"]))
+
+
+# the flax ENet's RegularBottleneck_i in creation order (enet.py:453-614)
+_ENET_REGULARS = (
+    "regular1_1", "regular1_2", "regular1_3", "regular1_4",
+    "regular2_1", "dilated2_2", "asymmetric2_3", "dilated2_4", "regular2_5",
+    "dilated2_6", "asymmetric2_7", "dilated2_8",
+    "regular3_0", "dilated3_1", "asymmetric3_2", "dilated3_3", "regular3_4",
+    "dilated3_5", "asymmetric3_6", "dilated3_7",
+    "regular4_1", "regular4_2", "regular5_1")
+
+
+def enet_state_dict_from_flax(params, batch_stats) -> dict:
+    """flax ENet -> models.enet.ENet (the reference names; inverse of
+    torch_import_zoo's convert_enet_state_dict). A block with PReLU
+    activations has PReLU_* params; the ReLU blocks have none."""
+    sd = {}
+    p, s = params["InitialBlock_0"], batch_stats["InitialBlock_0"]
+    _put(sd, "initial_block.main_branch", _conv(p["Conv_0"]))
+    _put(sd, "initial_block.batch_norm", _bn(p["BatchNorm_0"],
+                                             s["BatchNorm_0"]))
+    if "PReLU_0" in p:
+        _put(sd, "initial_block.out_activation", _prelu(p["PReLU_0"]))
+    for i, name in enumerate(("downsample1_0", "downsample2_0")):
+        p = params[f"DownsamplingBottleneck_{i}"]
+        s = batch_stats[f"DownsamplingBottleneck_{i}"]
+        for j in range(3):
+            _enet_seq(p, s, f"{name}.ext_conv{j + 1}", sd, j)
+        if "PReLU_3" in p:
+            _put(sd, f"{name}.out_activation", _prelu(p["PReLU_3"]))
+    for i, name in enumerate(_ENET_REGULARS):
+        p = params[f"RegularBottleneck_{i}"]
+        s = batch_stats[f"RegularBottleneck_{i}"]
+        n2 = 2 if name.startswith("asymmetric") else 1
+        _enet_seq(p, s, f"{name}.ext_conv1", sd, 0)
+        for j in range(n2):
+            _enet_seq(p, s, f"{name}.ext_conv2", sd, 1 + j, 3 * j)
+        _enet_seq(p, s, f"{name}.ext_conv3", sd, 1 + n2)
+        if f"PReLU_{2 + n2}" in p:
+            _put(sd, f"{name}.out_activation", _prelu(p[f"PReLU_{2 + n2}"]))
+    for i, name in enumerate(("upsample4_0", "upsample5_0")):
+        p = params[f"UpsamplingBottleneck_{i}"]
+        s = batch_stats[f"UpsamplingBottleneck_{i}"]
+        bn = lambda j: _bn(p[f"BatchNorm_{j}"], s[f"BatchNorm_{j}"])
+        _put(sd, f"{name}.main_conv1.0", _conv(p["Conv_0"]))
+        _put(sd, f"{name}.main_conv1.1", bn(0))
+        _put(sd, f"{name}.ext_conv1.0", _conv(p["Conv_1"]))
+        _put(sd, f"{name}.ext_conv1.1", bn(1))
+        _put(sd, f"{name}.ext_tconv1", _conv_transpose(p["ConvTranspose_0"]))
+        _put(sd, f"{name}.ext_tconv1_bnorm", bn(2))
+        _put(sd, f"{name}.ext_conv2.0", _conv(p["Conv_2"]))
+        _put(sd, f"{name}.ext_conv2.1", bn(3))
+        if "PReLU_0" in p:
+            for j, act in enumerate(("ext_conv1.2", "ext_tconv1_activation",
+                                     "ext_conv2.2", "out_activation")):
+                _put(sd, f"{name}.{act}", _prelu(p[f"PReLU_{j}"]))
+    _put(sd, "transposed_conv", _conv_transpose(params["ConvTranspose_0"]))
+    return sd
+
+
+def efficientunet_state_dict_from_flax(params, batch_stats) -> dict:
+    """flax EffiUNet -> models.efficientunet.EffiUNet."""
+    sd = {}
+    ep, es = params["EfficientNetEncoder_0"], \
+        batch_stats["EfficientNetEncoder_0"]
+    _put(sd, "encoder.stem_conv", _conv(ep["Conv_0"]))
+    _put(sd, "encoder.stem_bn", _bn(ep["BatchNorm_0"], es["BatchNorm_0"]))
+    n = sum(1 for k in ep if k.startswith("MBConv_"))
+    for i in range(n):
+        p, s = ep[f"MBConv_{i}"], es[f"MBConv_{i}"]
+        names = ("expand", "dw", "project") if "Conv_2" in p \
+            else ("dw", "project")
+        for j, name in enumerate(names):
+            _put(sd, f"encoder.blocks.{i}.{name}_conv", _conv(p[f"Conv_{j}"]))
+            _put(sd, f"encoder.blocks.{i}.{name}_bn",
+                 _bn(p[f"BatchNorm_{j}"], s[f"BatchNorm_{j}"]))
+        se = p["SqueezeExcite_0"]
+        _put(sd, f"encoder.blocks.{i}.se.reduce", _conv(se["Conv_0"]))
+        _put(sd, f"encoder.blocks.{i}.se.expand", _conv(se["Conv_1"]))
+    stages = sum(1 for k in params if k.startswith("Conv_")) // 2
+    for i in range(stages):
+        for j in range(2):
+            k = 2 * i + j
+            _put(sd, f"decoder.{i}.conv{j + 1}", _conv(params[f"Conv_{k}"]))
+            _put(sd, f"decoder.{i}.bn{j + 1}",
+                 _bn(params[f"BatchNorm_{k}"], batch_stats[f"BatchNorm_{k}"]))
+    _put(sd, "out_conv", _conv(params[f"Conv_{2 * stages}"]))
+    return sd
+
+
+def _dense(p):
+    out = {"weight": _t(np.asarray(p["kernel"]).T)}
+    if "bias" in p:
+        out["bias"] = _t(p["bias"])
+    return out
+
+
+def _norm(p):
+    """flax LayerNorm / GroupNorm (scale, bias) -> weight, bias."""
+    return {"weight": _t(p["scale"]), "bias": _t(p["bias"])}
+
+
+def _mha(p):
+    """flax MultiHeadDotProductAttention -> query/key/value/out Linear:
+    q/k/v kernels [hidden, heads, head_dim] (biases [heads, head_dim]),
+    out kernel [heads, head_dim, hidden], heads-major as the port splits
+    its projections."""
+    sd = {}
+    for name in ("query", "key", "value"):
+        k = np.asarray(p[name]["kernel"])
+        _put(sd, name, {"weight": _t(k.reshape(k.shape[0], -1).T),
+                        "bias": _t(np.asarray(p[name]["bias"]).reshape(-1))})
+    k = np.asarray(p["out"]["kernel"])
+    _put(sd, "out", {"weight": _t(k.reshape(-1, k.shape[-1]).T),
+                     "bias": _t(p["out"]["bias"])})
+    return sd
+
+
+def transunet_state_dict_from_flax(params, batch_stats,
+                                   units=(3, 4, 9)) -> dict:
+    """flax VisionTransformerSeg -> models.transunet.VisionTransformerSeg
+    (its ResNet stem has ``units`` bottlenecks per stage)."""
+    sd = {}
+    rp = params["ResNetV2Stem_0"]
+    _put(sd, "resnet.root_conv", _conv(rp["StdConv_0"]))
+    _put(sd, "resnet.root_gn", _norm(rp["GroupNorm_0"]))
+    i = 0
+    for stage, n in enumerate(units):
+        for u in range(n):
+            p = rp[f"PreActBottleneck_{i}"]
+            names = ("downsample", "conv1", "conv2", "conv3") \
+                if "StdConv_3" in p else ("conv1", "conv2", "conv3")
+            for j, name in enumerate(names):
+                pre = f"resnet.stages.{stage}.{u}"
+                gn = "gn_proj" if name == "downsample" else f"gn{name[-1]}"
+                _put(sd, f"{pre}.{name}", _conv(p[f"StdConv_{j}"]))
+                _put(sd, f"{pre}.{gn}", _norm(p[f"GroupNorm_{j}"]))
+            i += 1
+    _put(sd, "patch_embeddings", _conv(params["Conv_0"]))
+    sd["pos_embedding"] = _t(params["pos_embedding"])
+    n = sum(1 for k in params if k.startswith("TransformerBlock_"))
+    for i in range(n):
+        p = params[f"TransformerBlock_{i}"]
+        _put(sd, f"layers.{i}.attention_norm", _norm(p["LayerNorm_0"]))
+        _put(sd, f"layers.{i}.attn",
+             _mha(p["MultiHeadDotProductAttention_0"]))
+        _put(sd, f"layers.{i}.ffn_norm", _norm(p["LayerNorm_1"]))
+        _put(sd, f"layers.{i}.fc1", _dense(p["Dense_0"]))
+        _put(sd, f"layers.{i}.fc2", _dense(p["Dense_1"]))
+    _put(sd, "encoder_norm", _norm(params["LayerNorm_0"]))
+    _put(sd, "conv_more", _conv(params["Conv_1"]))
+    _put(sd, "conv_more_bn", _bn(params["BatchNorm_0"],
+                                 batch_stats["BatchNorm_0"]))
+    n = sum(1 for k in params if k.startswith("DecoderBlock_"))
+    for i in range(n):
+        p, s = params[f"DecoderBlock_{i}"], batch_stats[f"DecoderBlock_{i}"]
+        for j in range(2):
+            _put(sd, f"blocks.{i}.conv{j + 1}", _conv(p[f"Conv_{j}"]))
+            _put(sd, f"blocks.{i}.bn{j + 1}", _bn(p[f"BatchNorm_{j}"],
+                                                 s[f"BatchNorm_{j}"]))
+    _put(sd, "segmentation_head", _conv(params["Conv_2"]))
+    return sd
+
+
+def _swin_block(p, prefix, sd):
+    _put(sd, f"{prefix}.norm1", _norm(p["LayerNorm_0"]))
+    wa = p["WindowAttention_0"]
+    _put(sd, f"{prefix}.attn.qkv", _dense(wa["Dense_0"]))
+    _put(sd, f"{prefix}.attn.proj", _dense(wa["Dense_1"]))
+    sd[f"{prefix}.attn.relative_position_bias_table"] = _t(
+        wa["relative_position_bias_table"])
+    _put(sd, f"{prefix}.norm2", _norm(p["LayerNorm_1"]))
+    _put(sd, f"{prefix}.fc1", _dense(p["Dense_0"]))
+    _put(sd, f"{prefix}.fc2", _dense(p["Dense_1"]))
+
+
+def swin_unet_state_dict_from_flax(params, batch_stats=None) -> dict:
+    """flax SwinUnet -> models.swin_unet.SwinUnet. The stages are the runs
+    of SwinBlock_* of one width, in creation order: the encoder's, then
+    the decoder's."""
+    sd = {}
+    ln = iter(f"LayerNorm_{i}" for i in range(
+        sum(1 for k in params if k.startswith("LayerNorm_"))))
+    _put(sd, "patch_embed", _conv(params["Conv_0"]))
+    n_stages = sum(1 for k in params if k.startswith("PatchMerging_")) + 1
+    if len([k for k in params if k.startswith("LayerNorm_")]) == 4:
+        _put(sd, "patch_norm", _norm(params[next(ln)]))
+    if "absolute_pos_embed" in params:
+        sd["absolute_pos_embed"] = _t(params["absolute_pos_embed"])
+    n_blocks = sum(1 for k in params if k.startswith("SwinBlock_"))
+    widths = [np.asarray(params[f"SwinBlock_{i}"]["LayerNorm_0"]["scale"])
+              .shape[0] for i in range(n_blocks)]
+    runs = []                      # [first block, count] per stage
+    for i, w in enumerate(widths):
+        if i and w == widths[i - 1]:
+            runs[-1][1] += 1
+        else:
+            runs.append([i, 1])
+    for stage, (first, count) in enumerate(runs):
+        kind, idx = ("layers", stage) if stage < n_stages \
+            else ("layers_up", stage - n_stages)
+        for b in range(count):
+            _swin_block(params[f"SwinBlock_{first + b}"],
+                        f"{kind}.{idx}.{b}", sd)
+    for i in range(n_stages - 1):
+        p = params[f"PatchMerging_{i}"]
+        _put(sd, f"downsample.{i}.norm", _norm(p["LayerNorm_0"]))
+        _put(sd, f"downsample.{i}.reduction", _dense(p["Dense_0"]))
+        p = params[f"PatchExpand_{i}"]
+        _put(sd, f"upsample.{i}.expand", _dense(p["Dense_0"]))
+        _put(sd, f"upsample.{i}.norm", _norm(p["LayerNorm_0"]))
+        _put(sd, f"concat_back_dim.{i}", _dense(params[f"Dense_{i}"]))
+    _put(sd, "norm", _norm(params[next(ln)]))
+    _put(sd, "norm_up", _norm(params[next(ln)]))
+    _put(sd, "up.expand", _dense(params[f"Dense_{n_stages - 1}"]))
+    _put(sd, "up.norm", _norm(params[next(ln)]))
+    _put(sd, "output", _conv(params["Conv_1"]))
     return sd
 
 
@@ -167,14 +480,28 @@ def unet3d_state_dict_from_flax(params, batch_stats) -> dict:
     return sd
 
 
+# a top-level name of each flax model's tree -> its loader
+_LOADERS = (("VNetConvBlock_0", vnet_state_dict_from_flax),
+            ("UnetConv3_0", unet3d_state_dict_from_flax),
+            ("ConvBlockHAR_0", unet_har_state_dict_from_flax),
+            ("BilinearUp_0", unet_stego_state_dict_from_flax),
+            ("PNetBlock_0", pnet_state_dict_from_flax),
+            ("InitialBlock_0", enet_state_dict_from_flax),
+            ("EfficientNetEncoder_0", efficientunet_state_dict_from_flax),
+            ("ResNetV2Stem_0", transunet_state_dict_from_flax),
+            ("SwinBlock_0", swin_unet_state_dict_from_flax),
+            ("Encoder_0", unet_state_dict_from_flax))
+
+
 def model_state_dict_from_flax(params, batch_stats) -> dict:
-    """The model's state_dict: U-Net, V-Net or a 3-D U-Net by the flax
-    tree."""
-    if "VNetConvBlock_0" in params:
-        return vnet_state_dict_from_flax(params, batch_stats)
-    if "UnetConv3_0" in params:
-        return unet3d_state_dict_from_flax(params, batch_stats)
-    return unet_state_dict_from_flax(params, batch_stats)
+    """The model's state_dict, the model told apart by its flax tree: the
+    U-Net family (UNet, UNetDS, UNetCCT, UNetURPC, UNetSTEGO, UNetHAR),
+    PNet2D, ENet, EffiUNet, VisionTransformerSeg, SwinUnet, the V-Net or a
+    3-D U-Net."""
+    for key, loader in _LOADERS:
+        if key in params:
+            return loader(params, batch_stats or {})
+    raise ValueError(f"no loader for a flax tree with {sorted(params)[:4]}")
 
 
 def feature_extractor_state_dict_from_flax(params) -> dict:

@@ -31,8 +31,9 @@ class _FlaxBatchNorm:
     itself uses the batch statistics, as both frameworks do in train
     mode."""
 
-    def __init__(self, num_features: int):
-        super().__init__(num_features, eps=1e-5, momentum=0.1)
+    def __init__(self, num_features: int, affine: bool = True):
+        super().__init__(num_features, eps=1e-5, momentum=0.1,
+                         affine=affine)
         # off while a checkpointed forward is recomputed (running_stats_
         # frozen): the statistics move once per forward, as in JAX
         self.update_stats = True
@@ -86,6 +87,120 @@ def dropout(x, p: float, mask=None, generator=None, training: bool = True):
                           device=x.device) < (1.0 - p)
     return torch.where(mask, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
+
+
+class DropoutDraws:
+    """The keep-masks of one forward, handed out in call order.
+
+    A model with several dropout sites takes ``masks`` (a list in the
+    order its flax counterpart draws them: only sites with a positive rate
+    in a train-mode forward draw) and ``generator``; each site asks for the
+    next mask, and a missing or None entry is drawn from ``generator``."""
+
+    def __init__(self, masks=None, generator=None, training: bool = True):
+        self.masks = list(masks or [])
+        self.generator = generator
+        self.training = training
+        self.i = 0
+
+    def _next(self):
+        m = self.masks[self.i] if self.i < len(self.masks) else None
+        self.i += 1
+        return m
+
+    def dropout(self, x, p: float):
+        if not self.training or p == 0.0:
+            return x
+        return dropout(x, p, self._next(), self.generator)
+
+    def drop_path(self, x, rate: float):
+        """Stochastic depth: the whole sample's branch kept (x / keep) or
+        dropped, as timm's drop_path."""
+        if not self.training or rate == 0.0:
+            return x
+        mask = self._next()
+        if mask is None:
+            mask = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1),
+                              generator=self.generator,
+                              device=x.device) < (1.0 - rate)
+        return dropout(x, rate, mask)
+
+
+def same_pad(x, kernel, stride=1, dilation=1, value=0.0):
+    """Pad the spatial dims of [B, C, *spatial] ``x`` as flax/TF "SAME"
+    does before a strided window: the total padding max((out - 1) * s +
+    (k - 1) * d + 1 - n, 0) with out = ceil(n / s), its smaller half
+    before. With stride 2 and an even size this is asymmetric ((0, 1) for
+    k = 3, (1, 2) for k = 5, (2, 3) for k = 7), which ``padding=k // 2``
+    is not."""
+    nd = x.ndim - 2
+    ks = (kernel,) * nd if isinstance(kernel, int) else tuple(kernel)
+    pads = []
+    for n, k in zip(reversed(x.shape[2:]), reversed(ks)):
+        out = -(-n // stride)
+        total = max((out - 1) * stride + (k - 1) * dilation + 1 - n, 0)
+        pads += [total // 2, total - total // 2]
+    if not any(pads):
+        return x
+    return F.pad(x, pads, value=value)
+
+
+class SameConv2d(nn.Conv2d):
+    """Conv2d with flax's "SAME" padding for any stride (``same_pad``)."""
+
+    def __init__(self, in_ch, out_ch, kernel, stride=1, dilation=1,
+                 groups=1, bias=True):
+        super().__init__(in_ch, out_ch, kernel, stride=stride,
+                         dilation=dilation, groups=groups, bias=bias)
+
+    def forward(self, x):
+        return super().forward(same_pad(x, self.kernel_size, self.stride[0],
+                                        self.dilation[0]))
+
+
+class MLP2(nn.Sequential):
+    """Two stacked Linear layers (latent predictor, model_2D.py:146-151;
+    counterpart of arco_tpu/models/layers.py:MLP2)."""
+
+    def __init__(self, in_features: int, hidden: int, out: int):
+        super().__init__(nn.Linear(in_features, hidden),
+                         nn.Linear(hidden, out))
+
+
+class FeaturePerturbation:
+    """The feature perturbations of UNet_CCT's aux decoders and UNet_URPC
+    (unetWithArgs.py:277-307), on NCHW maps. Each takes its draw as an
+    argument (the layout of ``x``, or [B] for ``feature_dropout``), drawn
+    from ``generator`` when it is None."""
+
+    @staticmethod
+    def dropout(x, p: float = 0.3, keep=None, generator=None):
+        if keep is None:
+            keep = torch.rand(x.shape, generator=generator,
+                              device=x.device) < (1.0 - p)
+        return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+    @staticmethod
+    def feature_dropout(x, low: float = 0.7, high: float = 0.9, u=None,
+                        generator=None):
+        """Zero the positions whose channel mean reaches ``u`` (drawn in
+        [low, high)) times the sample's largest channel mean."""
+        if u is None:
+            u = low + (high - low) * torch.rand(
+                (x.shape[0],), generator=generator, device=x.device)
+        attention = x.mean(dim=1, keepdim=True)
+        max_val = attention.reshape(x.shape[0], -1).amax(dim=1)
+        thresh = (max_val * u.to(max_val.dtype)).reshape(
+            (-1,) + (1,) * (x.ndim - 1))
+        return torch.where(attention < thresh, x, torch.zeros_like(x))
+
+    @staticmethod
+    def feature_noise(x, uniform_range: float = 0.3, noise=None,
+                      generator=None):
+        if noise is None:
+            noise = (torch.rand(x.shape, generator=generator,
+                                device=x.device) * 2 - 1) * uniform_range
+        return x * noise.to(x.dtype) + x
 
 
 CONV = {2: nn.Conv2d, 3: nn.Conv3d}          # by spatial rank

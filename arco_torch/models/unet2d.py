@@ -6,6 +6,11 @@ five decoder maps coarse -> fine, channels [256, 128, 64, 32, 16].
 Module names follow networks/unetWithArgs.py (encoder.in_conv,
 encoder.down{k}.maxpool_conv.1, decoder.up{k}.{conv1x1,conv},
 decoder.out_conv).
+
+The variants of the reference factory (unetWithArgs.py:351-417) return four
+values: UNetDS (deep-supervision heads), UNetCCT (three aux decoders over
+perturbed encoder features) and UNetURPC (multi-scale heads over
+noise-perturbed decoder maps).
 """
 
 from __future__ import annotations
@@ -15,7 +20,12 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
-from arco_torch.models.layers import BilinearUp, ConvBlock2D, max_pool
+from arco_torch.models.layers import (BilinearUp, ConvBlock2D,
+                                      FeaturePerturbation, max_pool)
+from arco_torch.ops.interpolate import resize_bilinear
+
+FT_CHNS = (16, 32, 64, 128, 256)
+DROPOUT = (0.05, 0.1, 0.2, 0.3, 0.5)
 
 
 class _Down(nn.Module):
@@ -77,8 +87,8 @@ class Decoder(nn.Module):
 
 class UNet(nn.Module):
     def __init__(self, in_chns: int = 1, class_num: int = 4,
-                 ft_chns: Sequence[int] = (16, 32, 64, 128, 256),
-                 dropout: Sequence[float] = (0.05, 0.1, 0.2, 0.3, 0.5)):
+                 ft_chns: Sequence[int] = FT_CHNS,
+                 dropout: Sequence[float] = DROPOUT):
         super().__init__()
         self.class_num = class_num
         self.encoder = Encoder(in_chns, ft_chns, dropout)
@@ -108,3 +118,98 @@ class UNet(nn.Module):
         feats = self.encoder(x, dropout_masks, generator)
         logits, feature_map = self.decoder(feats)
         return logits, feats[-1], feature_map
+
+
+class _DeepHeads(nn.Module):
+    """The 3x3 heads out_conv_dp3, dp2, dp1 over decoder maps 1..3,
+    upsampled to the input size (align_corners=False)."""
+
+    def __init__(self, class_num):
+        super().__init__()
+        for name, ch in zip(("dp3", "dp2", "dp1"), FT_CHNS[-2:0:-1]):
+            setattr(self, f"out_conv_{name}",
+                    nn.Conv2d(ch, class_num, 3, padding=1))
+
+    def heads(self, fmap, size, noise=None):
+        outs = []
+        for name, f in zip(("dp3", "dp2", "dp1"), fmap[1:4]):
+            if noise is not None:
+                f = noise(f)
+            head = getattr(self, f"out_conv_{name}")(f)
+            outs.append(resize_bilinear(head, size, align_corners=False))
+        return outs
+
+
+class UNetDS(_DeepHeads):
+    """Deep-supervision variant (unetWithArgs.py:400-417): returns
+    (logits, dp3, dp2, dp1)."""
+
+    def __init__(self, in_chns: int = 1, class_num: int = 4):
+        super().__init__(class_num)
+        self.class_num = class_num
+        self.encoder = Encoder(in_chns, FT_CHNS, DROPOUT)
+        self.decoder = Decoder(FT_CHNS, class_num)
+
+    def forward(self, x, dropout_masks=None, generator=None):
+        feats = self.encoder(x, dropout_masks, generator)
+        logits, fmap = self.decoder(feats)
+        return (logits, *self.heads(fmap, x.shape[2:]))
+
+
+class UNetURPC(_DeepHeads):
+    """Uncertainty-rectified pyramid-consistency variant
+    (unetWithArgs.py:379-398): UNetDS whose heads see feature-noised maps
+    in train mode. ``noise``: optional [dp3, dp2, dp1] uniforms in [-0.3,
+    0.3) of the three maps' shapes (None entries drawn from
+    ``generator``)."""
+
+    def __init__(self, in_chns: int = 1, class_num: int = 4):
+        super().__init__(class_num)
+        self.class_num = class_num
+        self.encoder = Encoder(in_chns, FT_CHNS, DROPOUT)
+        self.decoder = Decoder(FT_CHNS, class_num)
+
+    def forward(self, x, dropout_masks=None, generator=None, noise=None):
+        feats = self.encoder(x, dropout_masks, generator)
+        logits, fmap = self.decoder(feats)
+        perturb = None
+        if self.training:
+            draws = iter(noise or [None] * 3)
+            perturb = lambda f: FeaturePerturbation.feature_noise(
+                f, noise=next(draws), generator=generator)
+        return (logits, *self.heads(fmap, x.shape[2:], perturb))
+
+
+class UNetCCT(nn.Module):
+    """Cross-consistency-training variant (unetWithArgs.py:351-377): one
+    encoder, a main decoder and three aux decoders over the encoder maps
+    perturbed by feature noise, dropout and feature dropout, in train and
+    in eval mode. Returns (main_logits, aux1, aux2, aux3).
+
+    ``perturb``: optional draws [noise, keep, u], each a list over the five
+    encoder maps (the noise uniforms and keep-masks of each map's shape,
+    the feature-dropout factors [B]); None entries come from
+    ``generator``. JAX draws the eval-mode ones from fixed keys; the tests
+    hand those over."""
+
+    def __init__(self, in_chns: int = 1, class_num: int = 4):
+        super().__init__()
+        self.class_num = class_num
+        self.encoder = Encoder(in_chns, FT_CHNS, DROPOUT)
+        self.main_decoder = Decoder(FT_CHNS, class_num)
+        for k in range(1, 4):
+            setattr(self, f"aux_decoder{k}", Decoder(FT_CHNS, class_num))
+
+    def forward(self, x, dropout_masks=None, generator=None, perturb=None):
+        feats = self.encoder(x, dropout_masks, generator)
+        outs = [self.main_decoder(feats)[0]]
+        fp = FeaturePerturbation
+        fns = (lambda f, d: fp.feature_noise(f, noise=d, generator=generator),
+               lambda f, d: fp.dropout(f, keep=d, generator=generator),
+               lambda f, d: fp.feature_dropout(f, u=d, generator=generator))
+        perturb = perturb or [None] * 3
+        for k, fn in enumerate(fns):
+            draws = perturb[k] or [None] * len(feats)
+            pfeats = [fn(f, d) for f, d in zip(feats, draws)]
+            outs.append(getattr(self, f"aux_decoder{k + 1}")(pfeats)[0])
+        return tuple(outs)

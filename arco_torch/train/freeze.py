@@ -74,6 +74,13 @@ def apply_freeze(model: torch.nn.Module, train_encoder: bool,
     optimizer. Every parameter trains when both halves do."""
     if train_encoder and train_decoder:
         return list(model.parameters())
+    if type(model).__name__ not in ("UNet", "VNet"):
+        # the U-Net variants name their halves encoder/decoder too, but
+        # the flags reach only these two, as in JAX
+        raise ValueError(
+            f"cannot freeze an encoder/decoder half of "
+            f"{type(model).__name__}: --train_encoder/--train_decoder "
+            "support the unet/vnet backbones")
     labels = model_param_labels(model, train_encoder, train_decoder)
     params = []
     for name, p in model.named_parameters():

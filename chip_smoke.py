@@ -68,11 +68,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``pretrain_3d --model unet_3D`` for 2 steps, one train-mode forward and
    backward of AttentionUNet3D and of UNet3DDVSemi at bs 2, 112x112x80, a
    small eval-mode forward of each 3-D U-Net against the CPU, and
-   ``test_3d --model unet_3D`` on one 128x128x96 volume.
+   ``test_3d --model unet_3D`` on one 128x128x96 volume;
+10. drive the 2D zoo (every ``net_factory`` key but nnUNet): (a) a
+   seeded eval forward of each at 64x64 on the card against the CPU (f32,
+   TF32 off); (b) each at 256x256, bs 4, bf16 autocast: two train-mode
+   forwards + backwards and one eval forward, ms and peak memory; (c)
+   ``train_arco_2d --model unet_stego`` at the defaults on phase 6's npz
+   tree, 4 steps and 2 resumed, each kernel launching once a step, and an
+   evaluation of its iter_6; (d) ``evaluate_2d`` of enet, pnet,
+   efficient_unet, ViT_Seg and swin_unet from saved checkpoints; (e)
+   ``pretrain_2d`` for 2 steps of each key JAX's stage 1 takes.
 
 It then prints one JSON line with the phases' numbers, one with the
 kernels' numbers (each with its 3D record under "3d", whose
-"launches_two_stage" counts phase 9's handoff leg; pool_sims also at 16
+"launches_two_stage" counts phase 9's handoff leg; "launches_zoo" counts
+phase 10's unet_stego leg; pool_sims also at 16
 query rows under "rows16") and, last, the device line. Without a CUDA GPU, or
 without the repository beside it, it prints no result and exits non-zero.
 
@@ -1478,6 +1488,235 @@ def phase_unet3d(device, workdir, vols):
     return out
 
 
+# phase 10: the 2D zoo (every net_factory key but nnUNet), timed at the
+# trainer's shapes; checked against the CPU at a small size
+ZOO = ("unet_stego", "unet_har", "unet_ds", "unet_cct", "unet_urpc", "pnet",
+       "enet", "efficient_unet", "ViT_Seg", "swin_unet")
+ZOO_EVAL = ("enet", "pnet", "efficient_unet", "ViT_Seg", "swin_unet")
+ZOO_PRETRAIN = ("unet_stego", "enet", "pnet", "efficient_unet", "ViT_Seg",
+                "swin_unet")
+ZOO_HW, ZOO_BS, ZOO_CHECK_HW = 256, 4, 64
+
+
+def _zoo_card_vs_cpu(device):
+    """(a) A seeded eval forward of each zoo model at 64x64, f32 with TF32
+    off, on the card against the CPU: every output within atol 1e-4 +
+    rtol 1e-4 of its scale."""
+    import torch
+    from arco_torch.models import net_factory
+    x = torch.randn((2, 1, ZOO_CHECK_HW, ZOO_CHECK_HW),
+                    generator=torch.Generator().manual_seed(8))
+    errs = {}
+    for key in ZOO:
+        torch.manual_seed(0)
+        model = net_factory(key, in_chns=1, class_num=4,
+                            img_size=ZOO_CHECK_HW).eval()
+        # UNetCCT perturbs in eval mode too: the same draws on both sides
+        kw = {"perturb": _cct_draws(x)} if key == "unet_cct" else {}
+        with torch.no_grad():
+            want = _flat(model(x, **kw))
+            kw = {"perturb": [[d.to(device) for d in k] for k in
+                              kw["perturb"]]} if kw else {}
+            got = [t.cpu() for t in _flat(model.to(device)(x.to(device),
+                                                           **kw))]
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        scale = max(w.abs().max().item() for w in want)
+        errs[key] = err
+        if not (len(got) == len(want) and err <= 1e-4 + 1e-4 * scale):
+            raise AssertionError(f"{key}: card vs cpu max err {err} "
+                                 f"(scale {scale})")
+    _log(f"zoo card vs cpu (eval, {ZOO_CHECK_HW}x{ZOO_CHECK_HW}, f32): max "
+         f"err {errs}")
+    return errs
+
+
+def _cct_draws(x):
+    """UNetCCT's perturbation draws for input ``x`` (CPU, seeded): the
+    noise uniforms and keep-masks of its five encoder maps, and the
+    feature-dropout factors."""
+    import torch
+    gen = torch.Generator().manual_seed(10)
+    b, _, h, w = x.shape
+    shapes = [(b, c, h >> k, w >> k)
+              for k, c in enumerate((16, 32, 64, 128, 256))]
+    return [[(torch.rand(s, generator=gen) * 2 - 1) * 0.3 for s in shapes],
+            [torch.rand(s, generator=gen) < 0.7 for s in shapes],
+            [0.7 + 0.2 * torch.rand((b,), generator=gen) for _ in shapes]]
+
+
+def _flat(out):
+    flat = []
+    for o in out:
+        flat += _flat(o) if isinstance(o, (list, tuple)) else [o]
+    return flat
+
+
+def _zoo_timing(device):
+    """(b) Each zoo model at 256x256, 1 channel, 4 classes, bs 4 under bf16
+    autocast as the trainer runs: two train-mode forwards + backwards of
+    the mean square of every output, then one eval forward; ms of each
+    call and the peak memory."""
+    import torch
+    from arco_torch.models import net_factory
+    gen = torch.Generator(device=device).manual_seed(9)
+    x = torch.randn((ZOO_BS, 1, ZOO_HW, ZOO_HW), generator=gen,
+                    device=device)
+    out = {}
+    for key in ZOO:
+        torch.manual_seed(0)
+        model = net_factory(key, in_chns=1, class_num=4,
+                            img_size=ZOO_HW).to(device).train()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(2):      # the first call selects cuDNN's algorithms
+            model.zero_grad(set_to_none=True)
+            t0 = time.perf_counter()
+            with torch.autocast(device.type, dtype=torch.bfloat16):
+                loss = sum(o.float().square().mean() for o in _flat(model(x)))
+            loss.backward()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        if not (math.isfinite(float(loss.detach())) and all(
+                p.grad is not None and bool(torch.isfinite(p.grad).all())
+                for p in model.parameters())):
+            raise AssertionError(f"{key}: non-finite loss or gradients")
+        model.eval()
+        t0 = time.perf_counter()
+        with torch.no_grad(), torch.autocast(device.type,
+                                             dtype=torch.bfloat16):
+            logits = model(x)[0]
+        torch.cuda.synchronize()
+        eval_ms = (time.perf_counter() - t0) * 1e3
+        if tuple(logits.shape) != (ZOO_BS, 4, ZOO_HW, ZOO_HW) \
+                or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{key}: eval logits {logits.shape}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out[key] = {"fwd_bwd_ms": ms, "eval_ms": eval_ms, "peak_gib": peak,
+                    "params": sum(p.numel() for p in model.parameters())}
+        _log(f"{key} at [{ZOO_BS}, 1, {ZOO_HW}, {ZOO_HW}] bf16: forward + "
+             f"backward {[round(t, 2) for t in ms]} ms (two calls), eval "
+             f"forward {eval_ms:.2f} ms, peak {peak:.2f} GiB")
+        del model, loss, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def _zoo_eval(device, model_dir, key, volumes, state_dict=None):
+    """evaluate_2d through test_2d's predictor (eval mode, f32) of the
+    weights in ``model_dir``'s newest iter_<N> (written first from
+    ``state_dict`` when given); the metrics must be finite and in range."""
+    import numpy as np
+    from arco_torch.eval.slice2d import evaluate_2d, model_predictor
+    from arco_torch.models import net_factory
+    from arco_torch.train import checkpoint as ckpt
+    if state_dict is not None:
+        ckpt._save(ckpt._path(model_dir, 1), {"step": 1,
+                                              "model": state_dict})
+    model = net_factory(key, in_chns=1, class_num=4,
+                        img_size=ZOO_HW).to(device)
+    model.load_state_dict(ckpt.load_model_params(
+        model_dir, ckpt.latest_step(model_dir)))
+    res = evaluate_2d(list(volumes), volumes.__getitem__,
+                      model_predictor(model, device), 4, (ZOO_HW, ZOO_HW))
+    pc = res["per_class"]
+    if not (np.isfinite(res["raw"]).all() and (pc[:, :2] >= 0).all()
+            and (pc[:, :2] <= 1).all() and (pc[:, 2:] >= 0).all()):
+        raise AssertionError(f"{key}: eval gave {pc}")
+    return pc.tolist()
+
+
+def phase_zoo(device, workdir, root):
+    """Phase 10, the 2D zoo: (a) card vs CPU of every new key; (b) its
+    full-width timing; (c) train_arco_2d --model unet_stego at the defaults
+    on the npz tree, 4 steps and 2 resumed, each kernel launching once a
+    step, and an evaluation of its iter_6; (d) evaluate_2d of the five
+    other 3-tuple models from saved checkpoints; (e) pretrain_2d for 2
+    steps of each key JAX's stage 1 takes."""
+    import numpy as np
+    import torch
+    from arco_torch.cli import pretrain_2d, train_arco_2d
+    from arco_torch.config import TrainConfig
+    from arco_torch.data.datasets import SynapseDataset
+    from arco_torch.data.synthetic import make_volume
+    from arco_torch.kernels import launch_counts, reset_launch_counts
+    from arco_torch.models import net_factory
+    t_start = time.perf_counter()
+    out = {"card_vs_cpu_err": _zoo_card_vs_cpu(device)}
+    out["timing"] = _zoo_timing(device)
+
+    model_dir = str(workdir / "zoo")
+    common = ["--root_path", root, "--labeled_num", "1", "--snapshot_dir",
+              model_dir, "--log_every", "1", "--ckpt_every", "2"]
+    reset_launch_counts()
+    for iterations in (4, 6):
+        train_arco_2d.main(common + ["--exp", "Synapse/zoo", "--model",
+                                     "unet_stego", "--max_iterations",
+                                     str(iterations)])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    run = Path(model_dir) / "Synapse/zoo_1_labeledfinal" / "unet_stego"
+    log = (run / "log.txt").read_text()
+    if "resuming full train state from full_iter_4" not in log:
+        raise AssertionError("zoo: the unet_stego rerun did not resume")
+    rows = [json.loads(line)
+            for line in (run / "metrics.jsonl").read_text().splitlines()]
+    if len(rows) != 6 or not all(math.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"zoo: unet_stego metrics {rows}")
+    for name, n in counts.items():
+        if n != 6:
+            raise AssertionError(f"zoo: {name} launched {n} times in 6 "
+                                 "unet_stego steps")
+    ips = [r["images_per_sec"] for r in rows]
+    bs = TrainConfig().data.batch_size
+    out["unet_stego_cli"] = {"images_per_sec": ips,
+                             "step_ms": [1e3 * bs / v for v in ips],
+                             "losses": [r["loss"] for r in rows]}
+    _log(f"train_arco_2d --model unet_stego: losses "
+         f"{[round(r['loss'], 4) for r in rows]}, step ms "
+         f"{[round(1e3 * bs / v, 2) for v in ips]}; launches {counts}")
+
+    rng = np.random.RandomState(1)
+    volumes = {f"vol{i}": make_volume(rng, (ZOO_HW, ZOO_HW), 4, CLI_DEPTH)
+               for i in range(CLI_VOLUMES)}
+    evals = {"unet_stego": _zoo_eval(device, str(run), "unet_stego",
+                                     volumes)}
+    for key in ZOO_EVAL:
+        torch.manual_seed(0)
+        sd = net_factory(key, in_chns=1, class_num=4,
+                         img_size=ZOO_HW).state_dict()
+        evals[key] = _zoo_eval(device, str(Path(model_dir) / key), key,
+                               volumes, sd)
+    out["eval_per_class"] = evals
+    _log(f"zoo evaluate_2d (dice, jc, hd95, asd) of class 1: "
+         f"{ {k: [round(v, 3) for v in pc[0]] for k, pc in evals.items()} }")
+
+    pre = {}
+    reset_launch_counts()
+    for key in ZOO_PRETRAIN:
+        cfg, snap = pretrain_2d.parse(common + [
+            "--exp", "Synapse/zoo_pre", "--model", key,
+            "--max_iterations", "2"])
+        pretrain_2d.train(cfg, snap, dataset=SynapseDataset(
+            root, root, "train", output_size=cfg.data.patch_size))
+        rows = [json.loads(line) for line in
+                (Path(snap) / "metrics.jsonl").read_text().splitlines()]
+        if len(rows) != 2 or not all(math.isfinite(r[k]) for r in rows
+                                     for k in ("loss", "loss_latent",
+                                               "loss_output")):
+            raise AssertionError(f"zoo pretrain {key}: metrics {rows}")
+        pre[key] = [r["loss"] for r in rows]
+    torch.cuda.synchronize()
+    if any(launch_counts().values()):
+        raise AssertionError(f"zoo pretrain launched kernels: "
+                             f"{launch_counts()}")
+    out["pretrain_losses"] = pre
+    _log(f"pretrain_2d 2 steps: losses {pre}")
+    out["s"] = time.perf_counter() - t_start
+    _log(f"phase 10 (zoo) in {out['s']:.1f} s")
+    return counts, out
+
+
 def main():
     try:
         import torch
@@ -1514,18 +1753,20 @@ def main():
         two3d_counts, vols, two_stage_3d = phase_pretrain_3d(device,
                                                              workdir)
         unet3d = phase_unet3d(device, workdir, vols)
+        zoo_counts, zoo = phase_zoo(device, workdir, root)
     for k in kernels:
         name = k["name"]
         k["launches"] = counts[name]
         k["launches_cli"] = cli_counts[name]
         k["launches_two_stage"] = two_counts[name]
+        k["launches_zoo"] = zoo_counts[name]
         k["3d"] = {**kernels_3d[name], "launches": counts_3d[name],
                    "launches_cli": cli3d_counts[name],
                    "launches_two_stage": two3d_counts[name]}
     print(json.dumps({"main_path": main_path, "cli": cli,
                       "two_stage": two_stage, "main_path_3d": main_path_3d,
                       "cli_3d": cli_3d, "two_stage_3d": two_stage_3d,
-                      "unet3d": unet3d}))
+                      "unet3d": unet3d, "zoo": zoo}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

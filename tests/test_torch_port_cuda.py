@@ -430,3 +430,49 @@ def test_unet3d_forward_on_the_card_matches_the_cpu(cuda, name):
     torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-4, atol=1e-4)
     rel = (got_bf[0].float().cpu() - want[0]).norm() / want[0].norm()
     assert rel <= 1e-1, rel
+
+
+ZOO = ("unet_stego", "unet_har", "unet_ds", "unet_cct", "unet_urpc", "pnet",
+       "enet", "efficient_unet", "ViT_Seg", "swin_unet")
+
+
+def _flat(out):
+    flat = []
+    for o in out:
+        flat += _flat(o) if isinstance(o, (list, tuple)) else [o]
+    return flat
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", ZOO)
+def test_zoo_forward_on_the_card_matches_the_cpu(cuda, key):
+    """A seeded eval-mode forward of each 2D zoo model at 64x64, bs 2, f32
+    with TF32 off, against the CPU: every output within atol 1e-4 + rtol
+    1e-4 of its scale (chip_smoke.py's phase 10 bound). UNetCCT perturbs
+    in eval mode too, so both sides take the same draws."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.manual_seed(0)
+    model = net_factory(key, in_chns=1, class_num=4, img_size=64).eval()
+    x = torch.randn((2, 1, 64, 64),
+                    generator=torch.Generator().manual_seed(1))
+    kw = {}
+    if key == "unet_cct":
+        gen = torch.Generator().manual_seed(2)
+        shapes = [(2, c, 64 >> k, 64 >> k)
+                  for k, c in enumerate((16, 32, 64, 128, 256))]
+        kw["perturb"] = [
+            [(torch.rand(s, generator=gen) * 2 - 1) * 0.3 for s in shapes],
+            [torch.rand(s, generator=gen) < 0.7 for s in shapes],
+            [0.7 + 0.2 * torch.rand((2,), generator=gen) for _ in shapes]]
+    with torch.no_grad():
+        want = _flat(model(x, **kw))
+        model.to(cuda)
+        kw = {"perturb": [[d.to(cuda) for d in k] for k in kw["perturb"]]} \
+            if kw else {}
+        got = _flat(model(x.to(cuda), **kw))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        scale = w.abs().max().item()
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4,
+                                   atol=1e-4 + 1e-4 * scale)
