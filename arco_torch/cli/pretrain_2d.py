@@ -11,7 +11,8 @@ Stage 2 then starts from its newest checkpoint:
 
 It runs on the card unless given ``--device cpu``. ``--model`` takes the
 keys whose forward is (logits, latent, feature maps), as JAX's stage 1:
-unet, unet_stego, enet, pnet, efficient_unet, ViT_Seg and swin_unet
+unet, unet_stego, enet, pnet, efficient_unet, ViT_Seg, swin_unet and
+nnUNet (sizes divisible by 32)
 (models/factory.py:check_model); ``--train_encoder`` / ``--train_decoder``
 only the U-Net's. The slices are staged on
 the device (data/device_bank.py) and drawn as the JAX CLI draws them. Every

@@ -10,15 +10,16 @@ Stage 2 then starts from its newest checkpoint:
         --exp LA/arco --labeled_num 8 --resume LA/pretrain
 
 The pretrain step is the 2D one (train/pretrain.py is rank-generic) on the
-V-Net (or ``--model unet_3D`` / ``attention_unet``) at [112, 112, 80]
-patches: a contrastive patch grid of 20^3 windows at step 10 (700 patches,
-model_3D.py:355-373), each pooled to 8^3, so the descriptors hold
-num_classes * 8^3 features. It runs on the card unless given ``--device
-cpu``. The training volumes are staged on the device
-(data/device_bank.py:DeviceVolumeBank) unless they do not share one
-square-plane shape; the log says which data path feeds the run. Every
-``ckpt_every`` steps it writes the whole pretrain state to ``iter_<N>``,
-and a rerun resumes from the newest one.
+V-Net (or ``--model unet_3D`` / ``attention_unet`` / ``voxresnet`` /
+``nnUNet``, the latter at ``--patch_size 128 128 80``: models/factory.py:
+check_model_3d) at [112, 112, 80] patches: a contrastive patch grid of
+20^3 windows at step 10 (700 patches, model_3D.py:355-373), each pooled
+to 8^3, so the descriptors hold num_classes * 8^3 features. It runs on
+the card unless given ``--device cpu``. The training volumes are staged
+on the device (data/device_bank.py:DeviceVolumeBank) unless they do not
+share one square-plane shape; the log says which data path feeds the run.
+Every ``ckpt_every`` steps it writes the whole pretrain state to
+``iter_<N>``, and a rerun resumes from the newest one.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from arco_torch.config import TrainConfig, parse_args
 from arco_torch.data.datasets import LAHeartDataset
 from arco_torch.data.samplers import TwoStreamBatchSampler
 from arco_torch.models import net_factory_3d
+from arco_torch.models.factory import check_model_3d
 from arco_torch.train import checkpoint as ckpt
 from arco_torch.train import freeze
 from arco_torch.train.pretrain import (init_pretrain_state, make_isd_modules,
@@ -100,6 +102,7 @@ def train(cfg: TrainConfig, snapshot_path: str, dataset=None):
     ``cfg.data.root_path``'s train.list, as in JAX); it exposes
     ``__len__``, ``load(i)`` and ``get(i, rng)`` (``data.datasets.
     InMemoryVolumes`` on a machine without h5py)."""
+    check_model_3d(cfg.model, "pretrain_3d")
     device = start_run(cfg, snapshot_path)
     num_classes = cfg.data.num_classes
     patch = tuple(cfg.data.patch_size)

@@ -7,7 +7,8 @@ arco_tpu/cli/test_2d.py; reference: test_2D.py).
 It reads the port's own iter_<N> checkpoints and runs on the card unless
 given ``--device cpu``. ``--model`` takes the keys whose forward is
 (logits, latent, feature maps), as JAX's ``logits, _, _ = model.apply``
-does: unet, unet_stego, enet, pnet, efficient_unet, ViT_Seg and swin_unet
+does: unet, unet_stego, enet, pnet, efficient_unet, ViT_Seg, swin_unet and
+nnUNet (sizes divisible by 32)
 (models/factory.py:check_model).
 """
 

@@ -3,11 +3,14 @@ arco_tpu/cli/test_3d.py; reference: test_3D.py).
 
     python -m arco_torch.cli.test_3d --root_path ../data/LA --exp LA/arco
 
-It builds any ``net_factory_3d`` model the port has (``--model vnet``,
-``unet_3D``, ``attention_unet``), reads the port's own iter_<N> checkpoints
-(of stage 2, or of the 3D pretrain), one (default: the newest) or
-a sweep (--startEpoch/--endEpoch/--stepEpoch, test_3D.py:39-41), and runs on
-the card unless given ``--device cpu``, in f32 without TF32. With
+It builds the ``net_factory_3d`` models whose forward is (logits, latent,
+feature maps), as JAX's (``--model vnet``, ``unet_3D``, ``attention_unet``,
+``voxresnet``, ``nnUNet``; models/factory.py:check_model_3d; nnU-Net's
+lattice needs ``--patch_size 128 128 80``, not LA's 112x112x80), reads the
+port's own iter_<N> checkpoints (of stage 2, or of the 3D pretrain), one
+(default: the newest) or a sweep (--startEpoch/--endEpoch/--stepEpoch,
+test_3D.py:39-41), and runs on the card unless given ``--device cpu``, in
+f32 without TF32. With
 ``--device_eval 1`` (the default) each case stays on the device
 (eval/sliding_window_device.py); 0 sums the window scores on the host.
 """
@@ -26,6 +29,7 @@ from arco_torch.data.datasets import LAHeartDataset
 from arco_torch.eval.sliding_window import evaluate_3d, model_predictor
 from arco_torch.eval.sliding_window_device import test_single_case_3d_device
 from arco_torch.models import net_factory_3d
+from arco_torch.models.factory import check_model_3d
 from arco_torch.train import checkpoint as ckpt
 
 
@@ -62,6 +66,7 @@ def main(argv=None, dataset=None):
     ``load(i)`` (``data.datasets.InMemoryVolumes`` on a machine without
     h5py)."""
     args = build_parser().parse_args(argv)
+    check_model_3d(args.model, "test_3d")
     device = resolve_device(args.device)
     # the f32 forward of training: no TF32 in convolutions or matmuls
     torch.backends.cudnn.allow_tf32 = False

@@ -31,6 +31,7 @@ from arco_torch.cli.train_arco_2d import (host_batches, load_stage1,
 from arco_torch.config import TrainConfig, parse_args
 from arco_torch.data.datasets import LAHeartDataset
 from arco_torch.models import net_factory_3d
+from arco_torch.models.factory import check_model_3d
 from arco_torch.train.arco2d import (init_arco_state, make_arco_modules,
                                      make_arco_step)
 
@@ -85,6 +86,7 @@ def train(cfg: TrainConfig, snapshot_path: str, dataset=None):
     """``dataset``: the (labeled, unlabeled) training volumes (default: the
     LAHeartDataset pair of ``cfg.data.root_path``, as in JAX); each exposes
     ``__len__``, ``load(i)`` and ``get(i, rng)``."""
+    check_model_3d(cfg.model, "train_arco_3d")
     device = start_run(cfg, snapshot_path)
     num_classes = cfg.data.num_classes
     patch = tuple(cfg.data.patch_size)

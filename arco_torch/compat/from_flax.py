@@ -480,27 +480,257 @@ def unet3d_state_dict_from_flax(params, batch_stats) -> dict:
     return sd
 
 
-# a top-level name of each flax model's tree -> its loader
-_LOADERS = (("VNetConvBlock_0", vnet_state_dict_from_flax),
-            ("UnetConv3_0", unet3d_state_dict_from_flax),
-            ("ConvBlockHAR_0", unet_har_state_dict_from_flax),
-            ("BilinearUp_0", unet_stego_state_dict_from_flax),
-            ("PNetBlock_0", pnet_state_dict_from_flax),
-            ("InitialBlock_0", enet_state_dict_from_flax),
-            ("EfficientNetEncoder_0", efficientunet_state_dict_from_flax),
-            ("ResNetV2Stem_0", transunet_state_dict_from_flax),
-            ("SwinBlock_0", swin_unet_state_dict_from_flax),
-            ("Encoder_0", unet_state_dict_from_flax))
+def _sequence(layers, sd, prefix=""):
+    """(port name, converted layer) pairs into ``sd``; None layers skip."""
+    for name, layer in layers:
+        if layer is not None:
+            _put(sd, prefix + name, layer)
 
 
-def model_state_dict_from_flax(params, batch_stats) -> dict:
+def _nn_stack(p, prefix, sd):
+    """A StackedConvLayers' ConvNormLRelu_j -> ``prefix``.blocks.j (conv
+    and affine instnorm)."""
+    for j in range(sum(1 for k in p if k.startswith("ConvNormLRelu_"))):
+        b = p[f"ConvNormLRelu_{j}"]
+        _put(sd, f"{prefix}.blocks.{j}.conv", _conv(b["Conv_0"]))
+        _put(sd, f"{prefix}.blocks.{j}.instnorm",
+             _norm(b["InstanceNormAffine_0"]))
+
+
+def nnunet_state_dict_from_flax(params, batch_stats=None) -> dict:
+    """flax GenericUNet (2D or 3D, any option) -> models.nnunet.GenericUNet
+    (the reference's Generic_UNet names). The flax tree holds the context
+    stages StackedConvLayers_0..n-1, the bottleneck's two (n, n + 1), each
+    localization stage's two (n + 2 + 2u, n + 3 + 2u), ConvTranspose_u
+    under convolutional upsampling, and the live heads Conv_i: every stage
+    under deep supervision, else the finest; InstanceNorm holds no
+    statistics."""
+    sd = {}
+    n = (sum(1 for k in params if k.startswith("StackedConvLayers_")) - 2) \
+        // 3
+    for d in range(n):
+        _nn_stack(params[f"StackedConvLayers_{d}"],
+                  f"conv_blocks_context.{d}", sd)
+    for i in range(2):
+        _nn_stack(params[f"StackedConvLayers_{n + i}"],
+                  f"conv_blocks_context.{n}.{i}", sd)
+    for u in range(n):
+        if f"ConvTranspose_{u}" in params:
+            _put(sd, f"tu.{u}", _conv_transpose(params[f"ConvTranspose_{u}"]))
+        for i in range(2):
+            _nn_stack(params[f"StackedConvLayers_{n + 2 + 2 * u + i}"],
+                      f"conv_blocks_localization.{u}.{i}", sd)
+    heads = sum(1 for k in params if k.startswith("Conv_"))
+    for i in range(heads):
+        _put(sd, f"seg_outputs.{i if heads == n else n - 1}",
+             _conv(params[f"Conv_{i}"]))
+    return sd
+
+
+def voxresnet_state_dict_from_flax(params, batch_stats=None) -> dict:
+    """flax VoxResNet -> models.voxresnet.VoxResNet (the reference names;
+    inverse of torch_import_zoo's convert_voxresnet_state_dict)."""
+    sd = {}
+    _put(sd, "conv1", _conv(params["Conv_0"]))
+    for r in range(6):
+        for j, idx in enumerate((2, 5)):
+            _put(sd, f"res{r + 1}.block.{idx}",
+                 _conv(params[f"VoxRex_{r}"][f"Conv_{j}"]))
+    for u in range(2):
+        for j, idx in enumerate((2, 5)):
+            _put(sd, f"up{u + 1}.conv.conv_conv.{idx}",
+                 _conv(params[f"UpBlock_{u}"][f"Conv_{j}"]))
+    _put(sd, "out", _conv(params["Conv_1"]))
+    return sd
+
+
+def _norms(params, batch_stats):
+    """The BatchNorm_i of a tree in creation order, converted; endless
+    Nones when it has none (instance or no norm: no state)."""
+    i = 0
+    while f"BatchNorm_{i}" in params:
+        yield _bn(params[f"BatchNorm_{i}"], batch_stats[f"BatchNorm_{i}"])
+        i += 1
+    while True:
+        yield None
+
+
+def resnet_generator_state_dict_from_flax(params, batch_stats=None,
+                                          use_dropout: bool = False) -> dict:
+    """flax ResnetGenerator -> models.gan.ResnetGenerator (``model.{i}``,
+    each ResnetBlock's ``conv_block.{i}``; a block's second conv sits one
+    index later with ``use_dropout``, which the flax tree does not show)."""
+    sd, bs = {}, batch_stats or {}
+    norms = _norms(params, bs)
+    seq = [("1", _conv(params["Conv_0"])), ("2", next(norms))]
+    for i in range(2):
+        seq += [(str(4 + 3 * i), _conv(params[f"Conv_{1 + i}"])),
+                (str(5 + 3 * i), next(norms))]
+    n = sum(1 for k in params if k.startswith("ResnetBlock_"))
+    second = 6 if use_dropout else 5
+    for b in range(n):
+        p, s = params[f"ResnetBlock_{b}"], bs.get(f"ResnetBlock_{b}", {})
+        bn = _norms(p, s)
+        _sequence([("1", _conv(p["Conv_0"])), ("2", next(bn)),
+                   (str(second), _conv(p["Conv_1"])),
+                   (str(second + 1), next(bn))], sd,
+                  f"model.{10 + b}.conv_block.")
+    for i in range(2):
+        seq += [(str(10 + n + 3 * i),
+                 _conv_transpose(params[f"ConvTranspose_{i}"])),
+                (str(11 + n + 3 * i), next(norms))]
+    seq.append((str(17 + n), _conv(params["Conv_3"])))
+    _sequence(seq, sd, "model.")
+    return sd
+
+
+def unet_generator_state_dict_from_flax(params, batch_stats=None) -> dict:
+    """flax UnetGenerator -> models.gan.UnetGenerator (``down.{level}``,
+    ``down_norm.{level}``, ``up.{level}``, ``up_norm.{level}``): the down
+    convs Conv_0..L-1, the up convs ConvTranspose_0..L-1 innermost first,
+    the norms in creation order (levels 1..L-2 down, then L-1..1 up)."""
+    sd = {}
+    levels = sum(1 for k in params if k.startswith("Conv_"))
+    norms = _norms(params, batch_stats or {})
+    for lv in range(levels):
+        _put(sd, f"down.{lv}", _conv(params[f"Conv_{lv}"]))
+    _sequence([(f"down_norm.{lv}", next(norms))
+               for lv in range(1, levels - 1)], sd)
+    for i, lv in enumerate(reversed(range(levels))):
+        _put(sd, f"up.{lv}", _conv_transpose(params[f"ConvTranspose_{i}"]))
+    _sequence([(f"up_norm.{lv}", next(norms))
+               for lv in reversed(range(1, levels))], sd)
+    return sd
+
+
+def nlayer_discriminator_state_dict_from_flax(params,
+                                              batch_stats=None) -> dict:
+    """flax NLayerDiscriminator -> models.gan.NLayerDiscriminator
+    (``model.{i}``, the reference's Sequential indices)."""
+    sd = {}
+    n_layers = sum(1 for k in params if k.startswith("Conv_")) - 2
+    norms = _norms(params, batch_stats or {})
+    seq = [("0", _conv(params["Conv_0"]))]
+    for n in range(1, n_layers + 1):
+        seq += [(str(2 + 3 * (n - 1)), _conv(params[f"Conv_{n}"])),
+                (str(3 + 3 * (n - 1)), next(norms))]
+    seq.append((str(2 + 3 * n_layers), _conv(params[f"Conv_{n_layers + 1}"])))
+    _sequence(seq, sd, "model.")
+    return sd
+
+
+def _dense_from_nhwc_flatten(p, channels: int, spatial=None):
+    """A flax Dense over an (h, w, c) flatten -> a Linear over torch's
+    (c, h, w) flatten; ``spatial`` (h, w) defaults to a square map."""
+    k = np.asarray(p["kernel"])                       # [h * w * c, out]
+    hw = k.shape[0] // channels
+    h, w = spatial or (int(round(hw ** 0.5)),) * 2
+    if h * w * channels != k.shape[0]:
+        raise ValueError(f"a Dense of {k.shape[0]} inputs is not an "
+                         f"({h}, {w}, {channels}) flatten")
+    wt = k.T.reshape(-1, h, w, channels).transpose(0, 3, 1, 2)
+    return {"weight": _t(wt.reshape(wt.shape[0], -1)), "bias": _t(p["bias"])}
+
+
+def discriminator_state_dict_from_flax(params, batch_stats=None,
+                                       spatial=None) -> dict:
+    """flax FC3DDiscriminator or FCDiscriminator -> the models.discriminator
+    module (``conv0..4``, ``classifier``). The 2D classifier reads torch's
+    (c, h, w) flatten of the pooled map, ``spatial`` (h, w) by default
+    square; the 3D one the global mean."""
+    sd = {}
+    for i in range(5):
+        _put(sd, f"conv{i}", _conv(params[f"Conv_{i}"]))
+    k = np.asarray(params["Conv_4"]["kernel"])
+    _put(sd, "classifier", _dense(params["Dense_0"]) if k.ndim == 5 else
+         _dense_from_nhwc_flatten(params["Dense_0"], k.shape[-1], spatial))
+    return sd
+
+
+def vgg19_features_state_dict_from_flax(params, batch_stats=None) -> dict:
+    """flax VGG19Features -> models.vgg.VGG19Features (torchvision's
+    ``features.{i}``, the ReLUs and pools counted)."""
+    from arco_torch.models.vgg import VGG19_CFG
+    sd, ti, ci = {}, 0, 0
+    for v in VGG19_CFG:
+        if v == "M":
+            ti += 1
+            continue
+        if f"Conv_{ci}" in params:      # the trunk stops at its last tap
+            _put(sd, f"features.{ti}", _conv(params[f"Conv_{ci}"]))
+        ti, ci = ti + 2, ci + 1
+    return sd
+
+
+def deepcluster_vgg16_state_dict_from_flax(params, batch_stats=None,
+                                           spatial=None) -> dict:
+    """flax DeepClusterVGG16 -> models.vgg.DeepClusterVGG16 (the
+    reference's ``features.{i}``, ``classifier.{0,3}``, ``top_layer``; the
+    first Linear permuted to torch's (c, h, w) flatten, ``spatial`` (h, w)
+    of the trunk's map by default square)."""
+    from arco_torch.models.vgg import VGG16_CFG
+    sd, ti, ci = {}, 0, 0
+    bn = "BatchNorm_0" in params
+    for v in VGG16_CFG:
+        if v == "M":
+            ti += 1
+            continue
+        _put(sd, f"features.{ti}", _conv(params[f"Conv_{ci}"]))
+        if bn:
+            _put(sd, f"features.{ti + 1}", _bn(params[f"BatchNorm_{ci}"],
+                                               batch_stats[f"BatchNorm_{ci}"]))
+        ti, ci = ti + (3 if bn else 2), ci + 1
+    _put(sd, "classifier.0",
+         _dense_from_nhwc_flatten(params["Dense_0"], 512, spatial))
+    _put(sd, "classifier.3", _dense(params["Dense_1"]))
+    if "Dense_2" in params:
+        _put(sd, "top_layer", _dense(params["Dense_2"]))
+    return sd
+
+
+def _kernel_size(params):
+    return np.asarray(params["Conv_0"]["kernel"]).shape[0]
+
+
+# each flax model's tree -> its loader, in the order they are told apart
+_LOADERS = (
+    (lambda p: "VNetConvBlock_0" in p, vnet_state_dict_from_flax),
+    (lambda p: "UnetConv3_0" in p, unet3d_state_dict_from_flax),
+    (lambda p: "ConvBlockHAR_0" in p, unet_har_state_dict_from_flax),
+    (lambda p: "BilinearUp_0" in p, unet_stego_state_dict_from_flax),
+    (lambda p: "PNetBlock_0" in p, pnet_state_dict_from_flax),
+    (lambda p: "InitialBlock_0" in p, enet_state_dict_from_flax),
+    (lambda p: "EfficientNetEncoder_0" in p,
+     efficientunet_state_dict_from_flax),
+    (lambda p: "ResNetV2Stem_0" in p, transunet_state_dict_from_flax),
+    (lambda p: "SwinBlock_0" in p, swin_unet_state_dict_from_flax),
+    (lambda p: "Encoder_0" in p, unet_state_dict_from_flax),
+    (lambda p: "StackedConvLayers_0" in p, nnunet_state_dict_from_flax),
+    (lambda p: "VoxRex_0" in p, voxresnet_state_dict_from_flax),
+    (lambda p: "ResnetBlock_0" in p, resnet_generator_state_dict_from_flax),
+    (lambda p: "ConvTranspose_0" in p, unet_generator_state_dict_from_flax),
+    # the rest are plain Conv_* (+ BatchNorm_*, Dense_*) trees: the
+    # discriminators' 4x4 kernels, the VGGs' 3x3 ones
+    (lambda p: "Dense_0" in p and _kernel_size(p) == 4,
+     discriminator_state_dict_from_flax),
+    (lambda p: "Dense_0" in p, deepcluster_vgg16_state_dict_from_flax),
+    (lambda p: "Conv_0" in p and _kernel_size(p) == 4,
+     nlayer_discriminator_state_dict_from_flax),
+    (lambda p: "Conv_0" in p, vgg19_features_state_dict_from_flax))
+
+
+def model_state_dict_from_flax(params, batch_stats, **kwargs) -> dict:
     """The model's state_dict, the model told apart by its flax tree: the
     U-Net family (UNet, UNetDS, UNetCCT, UNetURPC, UNetSTEGO, UNetHAR),
-    PNet2D, ENet, EffiUNet, VisionTransformerSeg, SwinUnet, the V-Net or a
-    3-D U-Net."""
-    for key, loader in _LOADERS:
-        if key in params:
-            return loader(params, batch_stats or {})
+    PNet2D, ENet, EffiUNet, VisionTransformerSeg, SwinUnet, the V-Net, a
+    3-D U-Net, nnU-Net (2D or 3D), VoxResNet, the two generators,
+    NLayerDiscriminator, the FC discriminators, VGG19Features or
+    DeepClusterVGG16. ``kwargs`` go to the loader (ResnetGenerator's
+    ``use_dropout``, the flatten ``spatial`` of FCDiscriminator and
+    DeepClusterVGG16)."""
+    for match, loader in _LOADERS:
+        if match(params):
+            return loader(params, batch_stats or {}, **kwargs)
     raise ValueError(f"no loader for a flax tree with {sorted(params)[:4]}")
 
 

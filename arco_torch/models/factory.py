@@ -1,17 +1,30 @@
 """String -> model factories (counterpart of arco_tpu/models/factory.py).
 
-Ported: every 2D key but ``nnUNet`` and the 3D ``vnet``, ``unet_3D``,
-``unet_3D_dv_semi`` and ``attention_unet``; the other keys raise.
+Every key of JAX's ``net_factory`` and ``net_factory_3d`` is ported; an
+unknown key raises.
 
 ``img_size`` (an int or (H, W)) is the input size of the models whose
 parameters depend on it: ViT_Seg's position embedding and Swin-UNet's
 window sizes (JAX takes both from the init input).
 
-The CLIs take the keys their JAX counterparts run, and ``check_model``
-says why a key is refused: ``train_arco_2d``'s FeatureExtractor fuses the
-U-Net's five maps (256, 128, 64, 32, 16); ``test_2d`` and ``pretrain_2d``
-unpack a (logits, latent, feature maps) forward, which the four-output
-variants do not return.
+The CLIs take the keys their JAX counterparts run (found by running the
+JAX CLIs on each key at a small size on the CPU), and ``check_model`` /
+``check_model_3d`` say why a key is refused:
+
+- ``train_arco_2d``'s FeatureExtractor fuses the U-Net's five maps (256,
+  128, 64, 32, 16): nnU-Net's six fail it, as every other map set does;
+- ``test_2d`` and ``pretrain_2d`` unpack a (logits, latent, feature maps)
+  forward, which the four-output variants do not return; nnU-Net 2D runs
+  through both (its lattice needs sizes divisible by 32);
+- ``train_arco_3d`` builds its FeatureExtractor and 3-D heads on the
+  V-Net's maps (128, 64, 32, 16, 16): JAX's fails building its state
+  (``init_arco_state``) for nnUNet, voxresnet and unet_3D, so only vnet
+  runs;
+- ``test_3d`` and ``pretrain_3d`` run every 3D key whose forward is a
+  (logits, latent, feature maps) triple: vnet, unet_3D, attention_unet,
+  voxresnet and nnUNet (whose lattice needs H and W divisible by 64 and Z
+  by 4: a 128x128x80 patch, not LA's 112x112x80); unet_3D_dv_semi returns
+  its four deep-supervision heads.
 """
 
 from __future__ import annotations
@@ -25,6 +38,7 @@ FEATURE_MAPS = {
     "enet": (128, 64, 16), "pnet": (64,) * 5,
     "efficient_unet": (384, 256, 128, 64, 32, 16),
     "ViT_Seg": (512, 256, 128, 64, 16), "swin_unet": (96, 192, 384, 768),
+    "nnUNet": (480, 256, 128, 64, 32, 16),
     "unet_har": None, "unet_ds": None, "unet_cct": None, "unet_urpc": None,
 }
 
@@ -80,9 +94,38 @@ def net_factory(net_type: str = "unet", in_chns: int = 1, class_num: int = 3,
         from arco_torch.models.swin_unet import SwinUnet
         return SwinUnet(img_size=img_size, num_classes=class_num,
                         in_chns=in_chns, **kwargs)
-    raise NotImplementedError(
-        f"net_type={net_type!r} is not ported yet: nnUNet comes with the "
-        "rest of the zoo (ROADMAP Queue A item 4)")
+    if net_type == "nnUNet":
+        from arco_torch.models.nnunet import initialize_network
+        return initialize_network(num_classes=class_num, threeD=False,
+                                  input_channels=in_chns)
+    raise NotImplementedError(f"net_type={net_type!r} is not a 2D model")
+
+
+# the 3D keys each 3D CLI runs (see the module docstring)
+_RUNS_3D = {"train_arco_3d": ("vnet",),
+            "test_3d": ("vnet", "unet_3D", "attention_unet", "voxresnet",
+                        "nnUNet")}
+_RUNS_3D["pretrain_3d"] = _RUNS_3D["test_3d"]
+_WHY_3D = {
+    "unet_3D_dv_semi": "returns its four deep-supervision heads, not "
+                       "(logits, latent, feature maps)",
+    "train_arco_3d": "does not give the V-Net's feature maps (128, 64, 32, "
+                     "16, 16) that the 3-D FeatureExtractor and heads fuse"}
+
+
+def check_model_3d(net_type: str, cli: str) -> None:
+    """Raise ValueError unless the 3D ``cli`` ("train_arco_3d",
+    "pretrain_3d" or "test_3d") runs ``net_type``, as its JAX counterpart
+    does; the message names the model and why."""
+    if net_type in _RUNS_3D[cli]:
+        return
+    if net_type == "unet_3D_dv_semi":
+        why = _WHY_3D[net_type]
+    elif net_type in _RUNS_3D["test_3d"]:
+        why = _WHY_3D[cli]
+    else:
+        why = "is not a 3D model"
+    raise ValueError(f"{cli}: model {net_type!r} {why}")
 
 
 def net_factory_3d(net_type: str = "vnet", in_chns: int = 1,
@@ -95,6 +138,11 @@ def net_factory_3d(net_type: str = "vnet", in_chns: int = 1,
            "attention_unet": unet3d.AttentionUNet3D}.get(net_type)
     if cls is not None:
         return cls(in_channels=in_chns, n_classes=class_num, **kwargs)
-    raise NotImplementedError(
-        f"net_type={net_type!r} is not ported yet: voxresnet and nnUNet "
-        "come with the rest of the zoo (ROADMAP Queue A item 4)")
+    if net_type == "voxresnet":
+        from arco_torch.models.voxresnet import VoxResNet
+        return VoxResNet(in_chns=in_chns, class_num=class_num, **kwargs)
+    if net_type == "nnUNet":
+        from arco_torch.models.nnunet import initialize_network
+        return initialize_network(num_classes=class_num, threeD=True,
+                                  input_channels=in_chns)
+    raise NotImplementedError(f"net_type={net_type!r} is not a 3D model")

@@ -29,10 +29,11 @@ class _FlaxBatchNorm:
     at the 2x2 bottleneck of a 32² batch of 2), so the running update is
     done here by hand, over every dim but the channels. Normalization
     itself uses the batch statistics, as both frameworks do in train
-    mode."""
+    mode. flax's default momentum 0.99 is ``momentum=0.01`` here."""
 
-    def __init__(self, num_features: int, affine: bool = True):
-        super().__init__(num_features, eps=1e-5, momentum=0.1,
+    def __init__(self, num_features: int, affine: bool = True,
+                 momentum: float = 0.1):
+        super().__init__(num_features, eps=1e-5, momentum=momentum,
                          affine=affine)
         # off while a checkpointed forward is recomputed (running_stats_
         # frozen): the statistics move once per forward, as in JAX
@@ -61,6 +62,29 @@ class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
 
 class BatchNorm3d(_FlaxBatchNorm, nn.BatchNorm3d):
     pass
+
+
+class InstanceNorm(nn.Module):
+    """torch InstanceNorm's defaults: no affine parameters, no running
+    statistics, ``eps`` (1e-5) on the biased variance. The statistics are
+    at least f32 whatever autocast is on (a float64 input keeps float64),
+    and the result is cast back to the input's dtype, as JAX computes it;
+    a map of one voxel normalizes to 0 (where ``F.instance_norm`` refuses
+    it)."""
+
+    def __init__(self, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+
+    def normalize(self, x):
+        """The normalized map in the statistics' dtype."""
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        var, mean = torch.var_mean(xf, dim=tuple(range(2, x.ndim)),
+                                   correction=0, keepdim=True)
+        return (xf - mean) / torch.sqrt(var + self.eps)
+
+    def forward(self, x):
+        return self.normalize(x).to(x.dtype)
 
 
 @contextlib.contextmanager

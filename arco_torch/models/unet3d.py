@@ -32,28 +32,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from arco_torch.models.layers import CONV, _BN, dropout
+from arco_torch.models.layers import CONV, _BN, InstanceNorm, dropout
 from arco_torch.ops.interpolate import resize_bilinear
 
 
 def _filters(feature_scale: int):
     return [int(f / feature_scale) for f in (64, 128, 256, 512, 1024)]
-
-
-class InstanceNorm(nn.Module):
-    """torch InstanceNorm3d's defaults: no affine parameters, no running
-    statistics, eps 1e-5 on the biased variance. The statistics are f32
-    whatever autocast is on, and the result is cast back to the input's
-    dtype, as JAX computes it; a map of one voxel normalizes to 0 (where
-    ``F.instance_norm`` refuses it)."""
-
-    eps = 1e-5
-
-    def forward(self, x):
-        xf = x.float()
-        var, mean = torch.var_mean(xf, dim=tuple(range(2, x.ndim)),
-                                   correction=0, keepdim=True)
-        return ((xf - mean) / torch.sqrt(var + self.eps)).to(x.dtype)
 
 
 def _conv_in_relu(in_ch: int, out_ch: int, kernel: int):

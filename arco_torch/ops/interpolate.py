@@ -48,3 +48,18 @@ def grid_sample_2d(x: torch.Tensor, grid: torch.Tensor,
     y = F.grid_sample(x.float(), grid.float(), mode=mode,
                       padding_mode=padding_mode, align_corners=align_corners)
     return y.to(x.dtype)
+
+
+def grid_sample_3d(x: torch.Tensor, grid: torch.Tensor,
+                   mode: str = "bilinear", padding_mode: str = "zeros",
+                   align_corners: bool = True) -> torch.Tensor:
+    """Trilinear torch grid_sample of [N, C, D, H, W] ``x`` at grid [N, Dg,
+    Hg, Wg, 3], whose last axis is (x = width, y = height, z = depth): the
+    counterpart of arco_tpu/ops/interpolate.py:grid_sample_3d, which takes
+    ``x`` channels-last. ``padding_mode`` "zeros" or "border". JAX computes
+    trilinear weights whatever ``mode`` says, so only "bilinear" is taken."""
+    if mode != "bilinear":
+        raise ValueError(f"grid_sample_3d is trilinear only, not {mode!r}")
+    y = F.grid_sample(x.float(), grid.float(), mode="bilinear",
+                      padding_mode=padding_mode, align_corners=align_corners)
+    return y.to(x.dtype)

@@ -72,12 +72,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
 10. drive the 2D zoo (every ``net_factory`` key but nnUNet): (a) a
    seeded eval forward of each at 64x64 on the card against the CPU (f32,
    TF32 off); (b) each at 256x256, bs 4, bf16 autocast: two train-mode
-   forwards + backwards and one eval forward, ms and peak memory; (c)
+   forwards + backwards and two eval forwards, ms and peak memory; (c)
    ``train_arco_2d --model unet_stego`` at the defaults on phase 6's npz
    tree, 4 steps and 2 resumed, each kernel launching once a step, and an
    evaluation of its iter_6; (d) ``evaluate_2d`` of enet, pnet,
    efficient_unet, ViT_Seg and swin_unet from saved checkpoints; (e)
-   ``pretrain_2d`` for 2 steps of each key JAX's stage 1 takes.
+   ``pretrain_2d`` for 2 steps of each key JAX's stage 1 takes;
+11. drive the rest of the zoo, which runs no kernel (every launch count
+   stays 0): (a) a seeded eval forward of nnU-Net 2D (64x64) and 3D
+   (128x128x8), VoxResNet (32x32x16), both generators and
+   NLayerDiscriminator (64x64), the FC discriminators (224x224, 32^3),
+   VGG19Features (64x64) and DeepClusterVGG16 (224x224) on the card
+   against the CPU (f32, TF32 off), and ``grid_sample_3d`` over a
+   112x112x80 volume; (b) at a user's shapes under bf16 autocast (nnU-Net
+   2D at 256x256 bs 4, 3D at 128x128x80 bs 2, VoxResNet at 112x112x80 bs
+   2, ResnetGenerator and NLayerDiscriminator at 256x256 bs 4,
+   VGG19Features at 224x224 bs 4): two train-mode forwards + backwards
+   and two eval forwards, ms and peak memory; (c) nnU-Net's tiled
+   predictor: ``predict_tiled`` of the 3D model over a 128x128x96 volume
+   (patch 128x128x80, 8 mirror combinations) and ``predict_3d_via_2d`` of
+   the 2D model over 256x256 slices, seconds a case and the card's busy
+   share from CUDA events around the forwards; (d) ``test_2d``'s
+   evaluation of nnUNet, ``test_3d --model nnUNet --patch_size 128 128 80``
+   and ``--model voxresnet`` from saved checkpoints, and 2 steps of
+   ``pretrain_2d --model nnUNet`` and ``pretrain_3d --model nnUNet`` /
+   ``voxresnet``.
 
 It then prints one JSON line with the phases' numbers, one with the
 kernels' numbers (each with its 3D record under "3d", whose
@@ -1545,17 +1564,20 @@ def _cct_draws(x):
 
 
 def _flat(out):
-    flat = []
-    for o in out:
-        flat += _flat(o) if isinstance(o, (list, tuple)) else [o]
-    return flat
+    """A forward's tensors: lists and tuples flattened, dicts by key."""
+    import torch
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, dict):
+        return _flat([out[k] for k in sorted(out)])
+    return [t for o in out for t in _flat(o)]
 
 
 def _zoo_timing(device):
     """(b) Each zoo model at 256x256, 1 channel, 4 classes, bs 4 under bf16
     autocast as the trainer runs: two train-mode forwards + backwards of
-    the mean square of every output, then one eval forward; ms of each
-    call and the peak memory."""
+    the mean square of every output, then two eval forwards (the second
+    is warm); ms of each call and the peak memory."""
     import torch
     from arco_torch.models import net_factory
     gen = torch.Generator(device=device).manual_seed(9)
@@ -1582,12 +1604,14 @@ def _zoo_timing(device):
                 for p in model.parameters())):
             raise AssertionError(f"{key}: non-finite loss or gradients")
         model.eval()
-        t0 = time.perf_counter()
-        with torch.no_grad(), torch.autocast(device.type,
-                                             dtype=torch.bfloat16):
-            logits = model(x)[0]
-        torch.cuda.synchronize()
-        eval_ms = (time.perf_counter() - t0) * 1e3
+        eval_ms = []
+        for _ in range(2):      # the first no-grad call has its own set-up
+            t0 = time.perf_counter()
+            with torch.no_grad(), torch.autocast(device.type,
+                                                 dtype=torch.bfloat16):
+                logits = model(x)[0]
+            torch.cuda.synchronize()
+            eval_ms.append((time.perf_counter() - t0) * 1e3)
         if tuple(logits.shape) != (ZOO_BS, 4, ZOO_HW, ZOO_HW) \
                 or not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"{key}: eval logits {logits.shape}")
@@ -1595,8 +1619,9 @@ def _zoo_timing(device):
         out[key] = {"fwd_bwd_ms": ms, "eval_ms": eval_ms, "peak_gib": peak,
                     "params": sum(p.numel() for p in model.parameters())}
         _log(f"{key} at [{ZOO_BS}, 1, {ZOO_HW}, {ZOO_HW}] bf16: forward + "
-             f"backward {[round(t, 2) for t in ms]} ms (two calls), eval "
-             f"forward {eval_ms:.2f} ms, peak {peak:.2f} GiB")
+             f"backward {[round(t, 2) for t in ms]} ms, eval forward "
+             f"{[round(t, 2) for t in eval_ms]} ms (two calls each), peak "
+             f"{peak:.2f} GiB")
         del model, loss, logits
     torch.cuda.empty_cache()
     return out
@@ -1717,6 +1742,325 @@ def phase_zoo(device, workdir, root):
     return counts, out
 
 
+# phase 11: the rest of the zoo (nnU-Net 2D/3D and its tiled predictor,
+# VoxResNet, grid_sample_3d, the GAN, discriminator and VGG modules)
+NN3D_PATCH, NN3D_VOLUME = (128, 128, 80), (128, 128, 96)
+VIA2D_SLICES, VGG_HW = 4, 224
+
+
+def _rest_models():
+    """name -> (constructor, input shapes) of phase 11a's card-vs-CPU check."""
+    from arco_torch.models import (discriminator, gan, net_factory,
+                                   net_factory_3d, vgg)
+    return {
+        "nnUNet_2d": (lambda: net_factory("nnUNet", class_num=4),
+                      [(2, 1, 64, 64)]),
+        "nnUNet_3d": (lambda: net_factory_3d("nnUNet", class_num=2),
+                      [(1, 1, 128, 128, 8)]),
+        "voxresnet": (lambda: net_factory_3d("voxresnet", class_num=2),
+                      [(2, 1, 32, 32, 16)]),
+        "resnet_generator": (lambda: gan.define_g(3, 3, 64,
+                                                  "resnet_9blocks"),
+                             [(2, 3, 64, 64)]),
+        "unet_generator": (lambda: gan.UnetGenerator(3, 3, num_downs=6),
+                           [(2, 3, 64, 64)]),
+        "nlayer_discriminator": (lambda: gan.define_d(3, 64, "basic"),
+                                 [(2, 3, 64, 64)]),
+        "fc_discriminator": (lambda: discriminator.FCDiscriminator(4),
+                             [(2, 4, 224, 224), (2, 1, 224, 224)]),
+        "fc3d_discriminator": (
+            lambda: discriminator.FC3DDiscriminator(2),
+            [(2, 2, 32, 32, 32), (2, 1, 32, 32, 32)]),
+        "vgg19_features": (lambda: vgg.VGG19Features(
+            normalize_features=True), [(2, 3, 64, 64)]),
+        "deepcluster_vgg16": (lambda: vgg.DeepClusterVGG16(sobel=True),
+                              [(2, 3, 224, 224)]),
+    }
+
+
+def _rest_card_vs_cpu(device):
+    """(a) A seeded eval forward of each new model, f32 with TF32 off, on
+    the card against the CPU, every output within atol 1e-4 + rtol 1e-4
+    of its scale; and grid_sample_3d on a random grid over a 112x112x80
+    volume, both padding modes."""
+    import torch
+    from arco_torch.ops.interpolate import grid_sample_3d
+    gen = torch.Generator().manual_seed(11)
+    errs = {}
+    for name, (build, shapes) in _rest_models().items():
+        torch.manual_seed(0)
+        model = build().eval()
+        xs = [torch.randn(s, generator=gen) for s in shapes]
+        with torch.no_grad():
+            want = _flat(model(*xs))
+            got = [t.cpu() for t in _flat(model.to(device)(
+                *[x.to(device) for x in xs]))]
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        scale = max(w.abs().max().item() for w in want)
+        errs[name] = err
+        if not (len(got) == len(want) and err <= 1e-4 + 1e-4 * scale):
+            raise AssertionError(f"{name}: card vs cpu max err {err} "
+                                 f"(scale {scale})")
+        del model
+    x = torch.randn((1, 2) + PATCH_3D, generator=gen)
+    grid = torch.rand((1,) + PATCH_3D + (3,), generator=gen) * 2.4 - 1.2
+    for mode in ("zeros", "border"):
+        want = grid_sample_3d(x, grid, padding_mode=mode)
+        got = grid_sample_3d(x.to(device), grid.to(device),
+                             padding_mode=mode).cpu()
+        errs[f"grid_sample_3d_{mode}"] = (got - want).abs().max().item()
+        if not errs[f"grid_sample_3d_{mode}"] <= 1e-5:
+            raise AssertionError(f"grid_sample_3d {mode}: card vs cpu "
+                                 f"{errs[f'grid_sample_3d_{mode}']}")
+    _log(f"rest of the zoo card vs cpu (eval, f32): max err {errs}")
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _timed_forwards(device, name, model, xs, shape_note):
+    """Two train-mode forwards + backwards of the mean square of every
+    output and two eval forwards, bf16 autocast; ms of each call and the
+    peak memory."""
+    import torch
+    model = model.to(device).train()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(2):          # the first call selects cuDNN's algorithms
+        model.zero_grad(set_to_none=True)
+        t0 = time.perf_counter()
+        with torch.autocast(device.type, dtype=torch.bfloat16):
+            loss = sum(o.float().square().mean()
+                       for o in _flat(model(*xs)))
+        loss.backward()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if not (math.isfinite(float(loss.detach())) and all(
+            p.grad is not None and bool(torch.isfinite(p.grad).all())
+            for p in model.parameters() if p.requires_grad)):
+        raise AssertionError(f"{name}: non-finite loss or gradients")
+    model.eval()
+    eval_ms = []
+    for _ in range(2):          # the first no-grad call has its own set-up
+        t0 = time.perf_counter()
+        with torch.no_grad(), torch.autocast(device.type,
+                                             dtype=torch.bfloat16):
+            out = _flat(model(*xs))
+        torch.cuda.synchronize()
+        eval_ms.append((time.perf_counter() - t0) * 1e3)
+    if not all(bool(torch.isfinite(o).all()) for o in out):
+        raise AssertionError(f"{name}: non-finite eval outputs")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _log(f"{name} at {shape_note} bf16: forward + backward "
+         f"{[round(t, 2) for t in ms]} ms, eval forward "
+         f"{[round(t, 2) for t in eval_ms]} ms (two calls each), peak "
+         f"{peak:.2f} GiB")
+    return {"fwd_bwd_ms": ms, "eval_ms": eval_ms, "peak_gib": peak,
+            "params": sum(p.numel() for p in model.parameters())}
+
+
+def _rest_timing(device):
+    """(b) At a user's shapes: nnU-Net 2D at 256², 1 channel, 4 classes, bs
+    4; nnU-Net 3D at 128x128x80, 2 classes, bs 2; VoxResNet at 112x112x80,
+    bs 2; ResnetGenerator (9 blocks) and NLayerDiscriminator at 256², 3
+    channels, bs 4; VGG19Features at 224², bs 4."""
+    import torch
+    from arco_torch.models import gan, net_factory, net_factory_3d, vgg
+    gen = torch.Generator(device=device).manual_seed(12)
+    cases = {
+        "nnUNet_2d": (lambda: net_factory("nnUNet", class_num=4),
+                      (ZOO_BS, 1, ZOO_HW, ZOO_HW)),
+        "nnUNet_3d": (lambda: net_factory_3d("nnUNet", class_num=2),
+                      (2, 1) + NN3D_PATCH),
+        "voxresnet": (lambda: net_factory_3d("voxresnet", class_num=2),
+                      (2, 1) + PATCH_3D),
+        "resnet_generator": (lambda: gan.define_g(3, 3, 64,
+                                                  "resnet_9blocks"),
+                             (ZOO_BS, 3, ZOO_HW, ZOO_HW)),
+        "nlayer_discriminator": (lambda: gan.define_d(3, 64, "basic"),
+                                 (ZOO_BS, 3, ZOO_HW, ZOO_HW)),
+        "vgg19_features": (lambda: vgg.VGG19Features(),
+                           (ZOO_BS, 3, VGG_HW, VGG_HW)),
+    }
+    out = {}
+    for name, (build, shape) in cases.items():
+        torch.manual_seed(0)
+        x = torch.randn(shape, generator=gen, device=device)
+        out[name] = _timed_forwards(device, name, build(), [x],
+                                    list(shape))
+        torch.cuda.empty_cache()
+    return out
+
+
+def _busy_predictor(model, device, events):
+    """test_3d's softmax predictor under bf16 autocast, with a CUDA event
+    pair around each forward."""
+    import torch
+
+    def predict(b):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        with torch.no_grad(), torch.autocast(device.type,
+                                             dtype=torch.bfloat16):
+            p = torch.softmax(model(b)[0].float(), dim=1)
+        end.record()
+        events.append((start, end))
+        return p
+    return predict
+
+
+def _rest_tiled(device):
+    """(c) predict_tiled with nnU-Net 3D over one 128x128x96 volume (patch
+    128x128x80, 8 mirror combinations) and predict_3d_via_2d with nnU-Net
+    2D over one 256x256 volume of VIA2D_SLICES slices (4 combinations);
+    each case twice (the first selects cuDNN's algorithms): seconds a case
+    and the share of it between the forwards' CUDA events."""
+    import numpy as np
+    import torch
+    from arco_torch.data.synthetic import la_volume, make_volume
+    from arco_torch.eval.tiled_predictor import (predict_3d_via_2d,
+                                                 predict_tiled)
+    from arco_torch.models import net_factory, net_factory_3d
+    rng = np.random.RandomState(13)
+    volume = la_volume(rng, NN3D_VOLUME)[0]
+    slices = make_volume(rng, (ZOO_HW, ZOO_HW), 4, VIA2D_SLICES)[0].astype(
+        np.float32)
+    out = {}
+    for name, k, run in (
+            ("predict_tiled_nnUNet_3d", 2, lambda p: predict_tiled(
+                p, volume, NN3D_PATCH, 2, device=device)),
+            ("predict_3d_via_2d_nnUNet_2d", 4, lambda p: predict_3d_via_2d(
+                p, slices, (ZOO_HW, ZOO_HW), 4, device=device))):
+        torch.manual_seed(0)
+        model = (net_factory_3d("nnUNet", class_num=2) if k == 2 else
+                 net_factory("nnUNet", class_num=4)).to(device).eval()
+        secs, busy = [], []
+        for _ in range(2):
+            events = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            labels, scores = run(_busy_predictor(model, device, events))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            secs.append(wall)
+            busy.append(sum(s.elapsed_time(e) for s, e in events) / 1e3
+                        / wall)
+        total = scores.sum(0)
+        if not (bool(torch.isfinite(scores).all())
+                and float((total - 1).abs().max()) < 1e-3
+                and labels.shape == tuple(scores.shape[1:])
+                and labels.min() >= 0 and labels.max() < k):
+            raise AssertionError(f"{name}: scores or labels out of range")
+        out[name] = {"s_per_case": secs, "busy_share": busy,
+                     "forwards": len(events)}
+        _log(f"{name}: {[round(t, 3) for t in secs]} s a case, card busy "
+             f"{[round(b, 3) for b in busy]} of it, {len(events)} "
+             "forwards")
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def _pretrain_rows(snap):
+    rows = [json.loads(line) for line in
+            (Path(snap) / "metrics.jsonl").read_text().splitlines()]
+    if len(rows) != 2 or not all(math.isfinite(r[k]) for r in rows
+                                 for k in ("loss", "loss_latent",
+                                           "loss_output")):
+        raise AssertionError(f"{snap}: metrics {rows}")
+    return [r["loss"] for r in rows]
+
+
+def _rest_clis(device, workdir, root, vols):
+    """(d) test_2d's path (evaluate_2d through its predictor) of nnUNet
+    from a saved checkpoint; test_3d --model nnUNet --patch_size 128 128
+    80 and --model voxresnet on one 128x128x96 volume from saved
+    checkpoints; 2 steps of pretrain_2d (nnUNet) and pretrain_3d (nnUNet,
+    voxresnet), the keys JAX's stage-1 CLIs take. No kernel launches."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from arco_torch.cli import pretrain_2d, pretrain_3d, test_3d
+    from arco_torch.data.datasets import InMemoryVolumes, SynapseDataset
+    from arco_torch.data.synthetic import make_volume
+    from arco_torch.models import net_factory, net_factory_3d
+    from arco_torch.train import checkpoint as ckpt
+    model_dir = workdir / "rest"
+    out = {}
+    rng = np.random.RandomState(14)
+    volumes = {f"vol{i}": make_volume(rng, (ZOO_HW, ZOO_HW), 4, CLI_DEPTH)
+               for i in range(CLI_VOLUMES)}
+    torch.manual_seed(0)
+    out["test_2d_nnUNet"] = _zoo_eval(
+        device, str(model_dir / "nnUNet_2d"), "nnUNet", volumes,
+        net_factory("nnUNet", class_num=4).state_dict())
+
+    for key, patch in (("nnUNet", NN3D_PATCH), ("voxresnet", PATCH_3D)):
+        snap = model_dir / f"LA/eval_{CLI3D_LABELED}_labeledfinal" / key
+        torch.manual_seed(0)
+        ckpt._save(ckpt._path(str(snap), 1), {
+            "step": 1, "model": net_factory_3d(key).state_dict()})
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = test_3d.main([
+                "--exp", "LA/eval", "--model", key, "--labeled_num",
+                str(CLI3D_LABELED), "--snapshot_dir", str(model_dir),
+                "--patch_size", *map(str, patch), "--device", device.type],
+                dataset=InMemoryVolumes(vols[:1], patch))
+        eval_s = time.perf_counter() - t0
+        m = res["per_class"][0]
+        if not (np.isfinite(res["raw"]).all() and 0 <= m[0] <= 1
+                and 0 <= m[1] <= 1 and (m[2:] >= 0).all()):
+            raise AssertionError(f"test_3d {key}: eval gave {m}")
+        out[f"test_3d_{key}"] = {"s": eval_s, "per_class": m.tolist()}
+        _log(f"test_3d --model {key} --patch_size {patch} on one "
+             f"{CLI3D_SIZE} volume in {eval_s:.2f} s: (dice, jc, hd95, asd) "
+             f"{m.tolist()}")
+
+    common = ["--labeled_num", "1", "--snapshot_dir", str(model_dir),
+              "--log_every", "1", "--ckpt_every", "2", "--max_iterations",
+              "2"]
+    cfg, snap = pretrain_2d.parse(common + ["--root_path", root, "--exp",
+                                            "Synapse/rest", "--model",
+                                            "nnUNet"])
+    pretrain_2d.train(cfg, snap, dataset=SynapseDataset(
+        root, root, "train", output_size=cfg.data.patch_size))
+    out["pretrain_2d_nnUNet"] = _pretrain_rows(snap)
+    for key, patch in (("nnUNet", NN3D_PATCH), ("voxresnet", PATCH_3D)):
+        cfg, snap = pretrain_3d.parse([
+            "--exp", "LA/rest", "--model", key, "--labeled_num",
+            str(CLI3D_LABELED), "--snapshot_dir", str(model_dir),
+            "--patch_size", *map(str, patch), "--max_iterations", "2",
+            "--log_every", "1", "--ckpt_every", "2"])
+        pretrain_3d.train(cfg, snap, dataset=InMemoryVolumes(vols, patch))
+        out[f"pretrain_3d_{key}"] = _pretrain_rows(snap)
+    _log(f"rest of the zoo CLIs: pretrain losses "
+         f"{ {k: v for k, v in out.items() if k.startswith('pretrain')} }")
+    return out
+
+
+def phase_rest(device, workdir, root, vols):
+    """Phase 11, the rest of the zoo: (a) card vs CPU; (b) timing at a
+    user's shapes; (c) the tiled predictor; (d) the CLIs. The path runs no
+    kernel, so every launch count stays 0."""
+    import torch
+    from arco_torch.kernels import launch_counts, reset_launch_counts
+    t_start = time.perf_counter()
+    reset_launch_counts()
+    out = {"card_vs_cpu_err": _rest_card_vs_cpu(device),
+           "timing": _rest_timing(device), "tiled": _rest_tiled(device),
+           "cli": _rest_clis(device, workdir, root, vols)}
+    torch.cuda.synchronize()
+    if any(launch_counts().values()):
+        raise AssertionError(f"phase 11 launched kernels: {launch_counts()}")
+    out["s"] = time.perf_counter() - t_start
+    _log(f"phase 11 (rest of the zoo) in {out['s']:.1f} s")
+    return out
+
+
 def main():
     try:
         import torch
@@ -1754,6 +2098,7 @@ def main():
                                                              workdir)
         unet3d = phase_unet3d(device, workdir, vols)
         zoo_counts, zoo = phase_zoo(device, workdir, root)
+        rest = phase_rest(device, workdir, root, vols)
     for k in kernels:
         name = k["name"]
         k["launches"] = counts[name]
@@ -1766,7 +2111,7 @@ def main():
     print(json.dumps({"main_path": main_path, "cli": cli,
                       "two_stage": two_stage, "main_path_3d": main_path_3d,
                       "cli_3d": cli_3d, "two_stage_3d": two_stage_3d,
-                      "unet3d": unet3d, "zoo": zoo}))
+                      "unet3d": unet3d, "zoo": zoo, "rest": rest}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -142,14 +142,18 @@ def test_conv_transpose_up_carries_the_flipped_kernel():
 
 
 def test_net_factory_3d_ports_vnet_only():
-    """The V-Net and (since the 3D stage-1 slice) the 3-D U-Nets build;
-    voxresnet and nnUNet still raise."""
+    """Every key of JAX's net_factory_3d builds its class: the V-Net, the
+    3-D U-Nets and (since the rest of the zoo) voxresnet and the 3D
+    nnU-Net; a key no factory knows raises."""
     assert net_factory_3d("vnet").has_dropout
-    from arco_torch.models import unet3d
+    from arco_torch.models import nnunet, unet3d, voxresnet
     assert isinstance(net_factory_3d("unet_3D"), unet3d.UNet3D)
-    for name in ("voxresnet", "nnUNet"):
-        with pytest.raises(NotImplementedError, match="Queue A item 4"):
-            net_factory_3d(name)
+    assert isinstance(net_factory_3d("voxresnet"), voxresnet.VoxResNet)
+    nn3d = net_factory_3d("nnUNet")
+    assert isinstance(nn3d, nnunet.GenericUNet)
+    assert (nn3d.spatial_dims, nn3d.latent_channels) == (3, 320)
+    with pytest.raises(NotImplementedError, match="'vnet3d' is not a 3D"):
+        net_factory_3d("vnet3d")
 
 
 # ----------------------------------------------------------------- V-Net

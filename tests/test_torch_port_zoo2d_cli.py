@@ -1,7 +1,8 @@
 """The 2D zoo through the port's factory and CLIs, against the JAX package
 (CPU, f32, TF32 off).
 
-- ``net_factory`` builds the ten ported 2D keys; ``nnUNet`` still raises.
+- ``net_factory`` builds the ten zoo keys and (since the rest of the zoo)
+  ``nnUNet``; an unknown key raises.
 - Each port CLI takes exactly the keys its JAX counterpart runs and
   refuses the others before it builds any state, with a message naming
   the model and why. The JAX CLIs' keys were found by running them (each
@@ -92,8 +93,14 @@ def test_net_factory_builds_the_zoo(key):
 
 
 def test_net_factory_nnunet_still_raises():
-    with pytest.raises(NotImplementedError, match="nnUNet"):
-        net_factory("nnUNet")
+    """nnUNet (since the rest of the zoo) builds the 2D GenericUNet; a key
+    no factory knows still raises."""
+    from arco_torch.models.nnunet import GenericUNet
+    model = net_factory("nnUNet", class_num=3)
+    assert isinstance(model, GenericUNet)
+    assert (model.spatial_dims, model.latent_channels) == (2, 480)
+    with pytest.raises(NotImplementedError, match="'nnUNet3d' is not a 2D"):
+        net_factory("nnUNet3d")
 
 
 @pytest.mark.parametrize("key", ("unet",) + ZOO)
