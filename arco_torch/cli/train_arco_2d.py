@@ -31,7 +31,8 @@ import torch
 from arco_torch import resolve_device
 from arco_torch.config import TrainConfig, parse_args, patients_to_slices
 from arco_torch.data.datasets import SliceDataset, SynapseDataset
-from arco_torch.data.pipeline import Prefetcher, TwoStreamPipeline
+from arco_torch.data.pipeline import (Prefetcher, TwoStreamPipeline,
+                                      nchw_batches)
 from arco_torch.models import net_factory
 from arco_torch.models.factory import check_model
 from arco_torch.train import checkpoint as ckpt
@@ -62,15 +63,6 @@ def build_datasets(cfg: TrainConfig):
     return ds_l, ds_u
 
 
-def _nchw_host_batches(pipeline):
-    """The host pipeline's batches with channels-first images (NCHW or
-    NCDHW), for the Prefetcher."""
-    for b in pipeline:
-        yield {"image_l": np.moveaxis(b["image_l"], -1, 1),
-               "label_l": b["label_l"],
-               "image_u": np.moveaxis(b["image_u"], -1, 1)}
-
-
 def _batches(cfg: TrainConfig, ds_l, ds_u, device):
     """(batch iterator, host pipeline to close or None)."""
     bs, b_l = cfg.data.batch_size, cfg.data.labeled_bs
@@ -95,7 +87,7 @@ def host_batches(cfg: TrainConfig, ds_l, ds_u, device):
     """(batches of the host pipeline on ``device``, the pipeline)."""
     pipeline = TwoStreamPipeline(ds_l, ds_u, cfg.data.batch_size,
                                  seed=cfg.seed, labeled_bs=cfg.data.labeled_bs)
-    return iter(Prefetcher(_nchw_host_batches(pipeline), device)), pipeline
+    return iter(Prefetcher(nchw_batches(pipeline), device)), pipeline
 
 
 def start_run(cfg: TrainConfig, snapshot_path: str) -> torch.device:

@@ -21,7 +21,8 @@ convert_q_representation_state_dict) without importing it:
   [heads, head_dim, hidden]) -> query/key/value/out Linear layers;
 - LayerNorm / GroupNorm scale/bias -> weight/bias.
 
-The model is any ported one (the 2D zoo, the 3D V-Net, the 3-D U-Nets;
+The model is any ported one (the 2D zoo, the 3D V-Net, the 3-D U-Nets,
+the DeepLabs;
 module names of arco_torch/models), told apart by the flax tree
 (``model_state_dict_from_flax``). Where the reference's names are known
 (U-Net family, PNet, ENet), the port's module names are the reference's.
@@ -688,12 +689,70 @@ def deepcluster_vgg16_state_dict_from_flax(params, batch_stats=None,
     return sd
 
 
+def _resnet_trunk(p, s, layers_prefix=""):
+    """A flax ResNetBackbone (conv1/bn1 as Conv_0/BatchNorm_0, then
+    Bottleneck_{i} numbered across the four layers) -> the reference's
+    ``conv1``, ``bn1``, ``layer{l}.{b}.*`` names; the blocks per layer are
+    read from the conv shapes (a layer's first block is downsampled)."""
+    sd = {}
+    _put(sd, "conv1", _conv(p["Conv_0"]))
+    _put(sd, "bn1", _bn(p["BatchNorm_0"], s["BatchNorm_0"]))
+    n_blocks = sum(1 for k in p if k.startswith("Bottleneck_"))
+    layer, b = 0, 0
+    for i in range(n_blocks):
+        bp, bs = p[f"Bottleneck_{i}"], s[f"Bottleneck_{i}"]
+        if "Conv_3" in bp:
+            layer, b = layer + 1, 0
+        pre = f"layer{layer}.{b}"
+        for j in range(3):
+            _put(sd, f"{pre}.conv{j + 1}", _conv(bp[f"Conv_{j}"]))
+            _put(sd, f"{pre}.bn{j + 1}",
+                 _bn(bp[f"BatchNorm_{j}"], bs[f"BatchNorm_{j}"]))
+        if "Conv_3" in bp:
+            _put(sd, f"{pre}.downsample.0", _conv(bp["Conv_3"]))
+            _put(sd, f"{pre}.downsample.1",
+                 _bn(bp["BatchNorm_3"], bs["BatchNorm_3"]))
+        b += 1
+    return sd
+
+
+def _conv_bn(sd, prefix, p, s, conv, bn, idx=(0, 1)):
+    _put(sd, f"{prefix}.{idx[0]}", _conv(p[f"Conv_{conv}"]))
+    _put(sd, f"{prefix}.{idx[1]}", _bn(p[f"BatchNorm_{bn}"],
+                                       s[f"BatchNorm_{bn}"]))
+
+
+def deeplab_state_dict_from_flax(params, batch_stats) -> dict:
+    """flax DeepLabV2, DeepLab2Branch (``ClassifierModule_0``) or
+    DeepLabV3Plus (``ASPP_0``) -> state_dict of models/deeplab.py (the
+    reference's names)."""
+    sd = _resnet_trunk(params["ResNetBackbone_0"],
+                       batch_stats["ResNetBackbone_0"])
+    if "ClassifierModule_0" in params:
+        cls = params["ClassifierModule_0"]
+        for j in range(sum(1 for k in cls if k.startswith("Conv_"))):
+            _put(sd, f"layer5.conv2d_list.{j}", _conv(cls[f"Conv_{j}"]))
+        return sd
+    ap, as_ = params["ASPP_0"], batch_stats["ASPP_0"]
+    n = sum(1 for k in ap if k.startswith("Conv_"))
+    for j in range(n - 2):           # the 1x1 and the dilated branches
+        _conv_bn(sd, f"ASPP.convs.{j}", ap, as_, j, j)
+    _conv_bn(sd, f"ASPP.convs.{n - 2}", ap, as_, n - 2, n - 2, (1, 2))
+    _conv_bn(sd, "ASPP.project", ap, as_, n - 1, n - 1)
+    _conv_bn(sd, "project", params, batch_stats, 0, 0)
+    for name, conv, bn in (("classifier", 1, 1), ("representation", 3, 2)):
+        _conv_bn(sd, name, params, batch_stats, conv, bn)
+        _put(sd, f"{name}.3", _conv(params[f"Conv_{conv + 1}"]))
+    return sd
+
+
 def _kernel_size(params):
     return np.asarray(params["Conv_0"]["kernel"]).shape[0]
 
 
 # each flax model's tree -> its loader, in the order they are told apart
 _LOADERS = (
+    (lambda p: "ResNetBackbone_0" in p, deeplab_state_dict_from_flax),
     (lambda p: "VNetConvBlock_0" in p, vnet_state_dict_from_flax),
     (lambda p: "UnetConv3_0" in p, unet3d_state_dict_from_flax),
     (lambda p: "ConvBlockHAR_0" in p, unet_har_state_dict_from_flax),
@@ -723,7 +782,8 @@ def model_state_dict_from_flax(params, batch_stats, **kwargs) -> dict:
     """The model's state_dict, the model told apart by its flax tree: the
     U-Net family (UNet, UNetDS, UNetCCT, UNetURPC, UNetSTEGO, UNetHAR),
     PNet2D, ENet, EffiUNet, VisionTransformerSeg, SwinUnet, the V-Net, a
-    3-D U-Net, nnU-Net (2D or 3D), VoxResNet, the two generators,
+    3-D U-Net, nnU-Net (2D or 3D), VoxResNet, a DeepLab (v2, v3+ or
+    2branch), the two generators,
     NLayerDiscriminator, the FC discriminators, VGG19Features or
     DeepClusterVGG16. ``kwargs`` go to the loader (ResnetGenerator's
     ``use_dropout``, the flatten ``spatial`` of FCDiscriminator and

@@ -47,6 +47,15 @@ class Prefetcher:
             yield self.buf.pop(0)
 
 
+def nchw_batches(batches):
+    """A host pipeline's batches with channels-first images (NCHW or
+    NCDHW), for the Prefetcher."""
+    for b in batches:
+        yield {"image_l": np.moveaxis(b["image_l"], -1, 1),
+               "label_l": b["label_l"],
+               "image_u": np.moveaxis(b["image_u"], -1, 1)}
+
+
 class TwoStreamPipeline:
     """Endless (labeled, unlabeled) batch pairs for the ARCO stage.
 

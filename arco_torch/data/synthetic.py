@@ -5,7 +5,9 @@ arco_tpu/data/synthetic.py).
 ``make_la_like`` the LA layout (h5 volumes) from the same ``RandomState``
 stream as the JAX version, so both packages read the same tree.
 ``make_synapse_like`` writes the Synapse npz layout, which needs no h5py;
-``la_volume`` makes one LA-like volume in memory.
+``la_volume`` makes one LA-like volume in memory. ``make_pascal_like``
+writes the Pascal VOC layout (JPEG images, PNG labels, the split lists) at
+VOC's image sizes with PIL.
 """
 
 from __future__ import annotations
@@ -130,4 +132,52 @@ def make_la_like(root: str, n_train: int = 8, size=(48, 48, 32),
         f.write("\n".join(cases) + "\n")
     with open(os.path.join(root, "test.list"), "w") as f:
         f.write("\n".join(cases[:2]) + "\n")
+    return root
+
+
+# VOC 2012's common image sizes (H, W)
+VOC_SIZES = ((375, 500), (500, 375), (333, 500), (500, 333), (360, 480))
+
+
+def make_pascal_like(root: str, n_train: int = 24, n_val: int = 4,
+                     num_classes: int = 21, classes_per_image: int = 4,
+                     seed: int = 0) -> str:
+    """A Pascal VOC tree (JPEGImages/, SegmentationClassAug/,
+    ImageSets/Segmentation/{train,val}.txt) of VOC-sized images: each
+    holds ``classes_per_image`` foreground blobs over the background, the
+    classes taken in turn so every class appears, a 255 (void) border
+    around each blob as in VOC, and colours that follow the classes."""
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+    palette = rng.randint(0, 256, (num_classes, 3))
+    for d in ("JPEGImages", "SegmentationClassAug",
+              os.path.join("ImageSets", "Segmentation")):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    k = 0
+    for split, n in (("train", n_train), ("val", n_val)):
+        names = []
+        for i in range(n):
+            h, w = VOC_SIZES[i % len(VOC_SIZES)]
+            label = np.zeros((h, w), np.uint8)
+            yy, xx = np.mgrid[0:h, 0:w]
+            for _ in range(classes_per_image):
+                c = k % (num_classes - 1) + 1
+                k += 1
+                cy, cx = rng.randint(h // 6, 5 * h // 6), \
+                    rng.randint(w // 6, 5 * w // 6)
+                r = rng.randint(min(h, w) // 10, min(h, w) // 4)
+                d2 = (yy - cy) ** 2 + (xx - cx) ** 2
+                label[(d2 < (r + 3) ** 2) & (d2 >= r * r)] = 255
+                label[d2 < r * r] = c
+            image = palette[np.where(label == 255, 0, label)] \
+                + rng.randint(-30, 30, (h, w, 3))
+            name = f"{split}_{i:04d}"
+            Image.fromarray(np.clip(image, 0, 255).astype(np.uint8)).save(
+                os.path.join(root, "JPEGImages", f"{name}.jpg"))
+            Image.fromarray(label).save(
+                os.path.join(root, "SegmentationClassAug", f"{name}.png"))
+            names.append(name)
+        with open(os.path.join(root, "ImageSets", "Segmentation",
+                               f"{split}.txt"), "w") as f:
+            f.write("\n".join(names) + "\n")
     return root

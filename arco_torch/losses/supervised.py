@@ -1,12 +1,20 @@
-"""Supervised losses (counterpart of arco_tpu/losses/supervised.py).
+"""Supervised losses (counterpart of arco_tpu/losses/supervised.py;
+reference: code/utils/losses.py, pretrain_2D.py:99).
 
 Channels-last as in JAX: logits/probs are [..., K], labels integer [...].
+The consistency losses after ``kld_batchmean`` are library leftovers that
+no trainer of either package calls.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+class DiceLossState:
+    """Placeholder kept for the JAX package's import surface; dice_loss is
+    functional."""
 
 
 def one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -17,9 +25,11 @@ def one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   ignore_index: int = -1, reduction: str = "mean"):
-    """torch F.cross_entropy semantics with ``ignore_index``."""
+    """torch F.cross_entropy semantics with ``ignore_index`` (which may lie
+    outside [0, K), as 255 does: the masked entries read a clamped index,
+    as JAX's gather clamps)."""
     valid = labels != ignore_index
-    safe = labels.clamp(min=0).long()
+    safe = labels.clamp(0, logits.shape[-1] - 1).long()
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     nll = nll * valid
@@ -54,3 +64,40 @@ def kld_batchmean(student_logits: torch.Tensor,
     logq = torch.log_softmax(teacher_logits.float(), dim=-1)
     q = torch.softmax(teacher_logits.float(), dim=-1)
     return (q * (logq - logp)).sum() / student_logits.shape[0]
+
+
+def softmax_mse_loss(input_logits, target_logits):
+    """utils/losses.py:85-100, as the elementwise mean."""
+    p = torch.softmax(input_logits.float(), dim=-1)
+    q = torch.softmax(target_logits.float(), dim=-1)
+    return torch.mean((p - q) ** 2)
+
+
+def softmax_kl_loss(input_logits, target_logits):
+    """utils/losses.py:104-121: KL(softmax(target) || softmax(input)),
+    summed over classes and averaged over the rest."""
+    logp = torch.log_softmax(input_logits.float(), dim=-1)
+    q = torch.softmax(target_logits.float(), dim=-1)
+    logq = torch.log_softmax(target_logits.float(), dim=-1)
+    return torch.mean(torch.sum(q * (logq - logp), dim=-1))
+
+
+def symmetric_mse_loss(input1, input2):
+    """utils/losses.py:125-133: the gradient reaches both inputs."""
+    return torch.mean((input1 - input2) ** 2)
+
+
+def entropy_loss(probs, eps: float = 1e-6):
+    """Mean pixel entropy (utils/losses.py:7-14)."""
+    return torch.mean(-torch.sum(probs * torch.log(probs + eps), dim=-1))
+
+
+def focal_loss(logits, labels, gamma: float = 2.0, alpha: float = 0.25,
+               ignore_index: int = -1):
+    """utils/losses.py:136-170."""
+    valid = labels != ignore_index
+    safe = labels.clamp(0, logits.shape[-1] - 1).long()
+    logpt = torch.gather(torch.log_softmax(logits.float(), dim=-1), -1,
+                         safe[..., None])[..., 0]
+    loss = -alpha * (1 - torch.exp(logpt)) ** gamma * logpt * valid
+    return loss.sum() / valid.sum().clamp(min=1)

@@ -25,6 +25,20 @@ JAX CLIs on each key at a small size on the CPU), and ``check_model`` /
   voxresnet and nnUNet (whose lattice needs H and W divisible by 64 and Z
   by 4: a 128x128x80 patch, not LA's 112x112x80); unet_3D_dv_semi returns
   its four deep-supervision heads.
+
+The natural-image CLIs build their models with ``natural_model`` and
+``check_natural_model`` says which they take:
+
+- ``train_arco_natural`` takes unet (3 input channels), deeplabv2 and
+  deeplabv3 (its argparse choices), each with backbone resnet50 or
+  resnet101 for the DeepLabs;
+- ``eval_natural`` takes every ``deeplab*`` key that ``model_generator``
+  maps to DeepLab-v2 or v3+ (the 2branch keys return four values) and the
+  2D keys ``test_2d`` runs, with 3 input channels;
+- the U-Net's pooled maps must concatenate with its upsampled ones, so its
+  crop must be divisible by 16: JAX's fails at Pascal's 321 (found by
+  running its init at 320, 321, 64, 65, 48, 40 and 33); pass
+  ``--crop_size 320``.
 """
 
 from __future__ import annotations
@@ -146,3 +160,42 @@ def net_factory_3d(net_type: str = "vnet", in_chns: int = 1,
         return initialize_network(num_classes=class_num, threeD=True,
                                   input_channels=in_chns)
     raise NotImplementedError(f"net_type={net_type!r} is not a 3D model")
+
+
+# the natural-image CLIs' keys (see the module docstring)
+NATURAL_TRAIN = ("unet", "deeplabv2", "deeplabv3")
+NATURAL_BACKBONES = ("resnet50", "resnet101")
+
+
+def check_natural_model(model: str, crop, cli: str) -> None:
+    """Raise ValueError unless the natural ``cli`` ("train_arco_natural" or
+    "eval_natural") runs ``model`` at ``crop`` (H, W), as its JAX
+    counterpart does; the message names the model and why."""
+    if model.startswith("deeplab"):
+        if "2branch" in model.lower():
+            raise ValueError(
+                f"{cli}: model {model!r} returns four values (feature_"
+                "instance, feature_part, logits, None), not (logits, "
+                "latent, feature maps)")
+        if cli == "train_arco_natural" and model not in NATURAL_TRAIN:
+            raise ValueError(f"{cli}: model {model!r} is not one of "
+                             f"{NATURAL_TRAIN}")
+        return
+    if cli == "train_arco_natural" and model not in NATURAL_TRAIN:
+        raise ValueError(f"{cli}: model {model!r} is not one of "
+                         f"{NATURAL_TRAIN}")
+    check_model(model, "test_2d")
+    if model == "unet" and any(int(c) % 16 for c in crop):
+        raise ValueError(
+            f"{cli}: the U-Net's skip connections need a crop divisible by "
+            f"16, not {tuple(crop)} (pass --crop_size, e.g. 320)")
+
+
+def natural_model(model: str, backbone: str = "resnet101",
+                  num_classes: int = 21):
+    """The natural-image CLIs' model: a DeepLab (``model_generator``) for
+    the ``deeplab*`` keys, else the 2D model with 3 input channels."""
+    if model.startswith("deeplab"):
+        from arco_torch.models.deeplab import model_generator
+        return model_generator(model, backbone, num_classes=num_classes)
+    return net_factory(model, in_chns=3, class_num=num_classes)

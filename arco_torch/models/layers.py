@@ -52,6 +52,18 @@ class _FlaxBatchNorm:
                     mean, alpha=self.momentum)
                 self.running_var.mul_(1 - self.momentum).add_(
                     var, alpha=self.momentum)
+        if x.numel() == x.shape[1]:
+            # one value per channel (the DeepLab-v3+ ASPP's pooled branch at
+            # batch 1): torch's batch_norm refuses it, flax normalizes it to
+            # zero; the same formula here, so the gradient is flax's too
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            var, mean = torch.var_mean(xf, dim=(0,) + tuple(range(2, x.ndim)),
+                                       correction=0, keepdim=True)
+            y = (xf - mean) * torch.rsqrt(var + self.eps)
+            if self.affine:
+                shape = (1, -1) + (1,) * (x.ndim - 2)
+                y = y * self.weight.view(shape) + self.bias.view(shape)
+            return y.to(x.dtype)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
 

@@ -9,6 +9,8 @@ in place of ``final`` (pretrain_2D.py:313-320). In torch idiom the frozen
 half's parameters get ``requires_grad_(False)`` and stay out of the
 optimizer, so a step leaves them bit-identical: no gradient, no weight
 decay, no momentum (JAX routes them to ``optax.set_to_zero``).
+``apply_deeplab_bn_freeze`` does the same to the BatchNorm scales and
+biases of DeepLab-v2.
 """
 
 from __future__ import annotations
@@ -89,3 +91,17 @@ def apply_freeze(model: torch.nn.Module, train_encoder: bool,
         else:
             p.requires_grad_(False)
     return params
+
+
+def apply_deeplab_bn_freeze(model: torch.nn.Module) -> list:
+    """Freeze every BatchNorm scale and bias of ``model`` in place and
+    return the parameters that still train, for the optimizer: the
+    reference sets requires_grad=False on every trunk BatchNorm
+    (models/deeplab.py:90-103, 155-157, 176-180), so its optimizer never
+    touches them (get_1x_lr_params_NOscale, deeplab.py:219-236). Their
+    running statistics still move in train mode, as in JAX."""
+    for m in model.modules():
+        if isinstance(m, torch.nn.modules.batchnorm._BatchNorm) and m.affine:
+            m.weight.requires_grad_(False)
+            m.bias.requires_grad_(False)
+    return [p for p in model.parameters() if p.requires_grad]

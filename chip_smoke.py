@@ -96,12 +96,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
    evaluation of nnUNet, ``test_3d --model nnUNet --patch_size 128 128 80``
    and ``--model voxresnet`` from saved checkpoints, and 2 steps of
    ``pretrain_2d --model nnUNet`` and ``pretrain_3d --model nnUNet`` /
-   ``voxresnet``.
+   ``voxresnet``;
+12. drive the natural-image branch (``train_arco_natural`` at its
+   defaults: DeepLab-v2 / ResNet-101 on Pascal, 321x321 crops, 21 classes,
+   bs 4+4, 256-channel reps fused from the four ResNet maps, bf16): (a)
+   the three kernels at its shapes against their plain versions (the
+   InfoNCE pair over full 21-class banks at C = 256 and at the U-Net's C =
+   496, pool_sims on 8 query rows at F = 41*41*256, 21*21*256 and
+   320*320*496, beside torch.matmul); (b) one small DeepLab-v2 step
+   (65x65, 4 classes, bs 2+2) on the card against the CPU, as in phase 4;
+   (c) ``train_arco_natural`` for 4 steps on a synthetic VOC tree (24
+   train and 4 val images of VOC's sizes, every class present), logging
+   and checkpointing every 2, every loss finite and each kernel launched
+   once a step, step ms and peak memory; (d) 2 steps of ``--model
+   deeplabv3`` and of ``--model unet --crop_size 320``; (e)
+   ``--resume_snapshot`` from (c)'s iter_4 for 2 steps; (f)
+   ``--restore_from`` a ``module.``-prefixed state dict of the phase's own
+   DeepLab-v2, the trunk checked against the file right after the load;
+   (g) ``eval_natural`` of (c)'s iter_4 on the val images, JAX's JSON
+   schema and an mIoU in [0, 1].
 
 It then prints one JSON line with the phases' numbers, one with the
 kernels' numbers (each with its 3D record under "3d", whose
 "launches_two_stage" counts phase 9's handoff leg; "launches_zoo" counts
-phase 10's unet_stego leg; pool_sims also at 16
+phase 10's unet_stego leg and "launches_natural" phase 12's DeepLab-v2
+leg, whose shapes' records sit under "natural"; pool_sims also at 16
 query rows under "rows16") and, last, the device line. Without a CUDA GPU, or
 without the repository beside it, it prints no result and exits non-zero.
 
@@ -113,6 +132,7 @@ between two CUDA events.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -2061,6 +2081,277 @@ def phase_rest(device, workdir, root, vols):
     return out
 
 
+# phase 12: the natural-image branch (train_arco_natural at its defaults
+# on Pascal: DeepLab-v2 / ResNet-101, 321x321 crops, 21 classes, bs 4 + 4,
+# 256-channel reps fused from the four ResNet maps fine -> coarse)
+NAT_CLASSES, NAT_C, NAT_CROP, NAT_BS = 21, 256, 321, 4
+NAT_CAPS = (50000,) + (30000,) * (NAT_CLASSES - 1)
+NAT_UNET_CROP = 320
+# the synthetic VOC tree: VOC-sized images, every class in train and val
+NAT_TRAIN, NAT_VAL, NAT_LABEL_NUM = 24, 4, 2
+NAT_STEPS, NAT_OTHER_STEPS = 4, 2
+
+
+def phase_kernels_natural(device):
+    """(a) The three kernels at the natural path's shapes against their
+    plain versions: the InfoNCE pair over full 21-class banks at 'smc'
+    draws with C = 256 (DeepLab) and C = 496 (the 3-channel U-Net);
+    pool_sims on 2 * 4 query rows of DeepLab-v2's F = 41 * 41 * 256,
+    DeepLab-v3+'s 21 * 21 * 256 and the U-Net's 320 * 320 * 496 (with
+    torch.matmul timed beside it)."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(12)
+    out = {}
+    for c in (NAT_C, C):
+        per_draw = _infonce_draws(gen, device, NAT_CAPS, c, (MAIN_DRAW,))
+        for name, rec in per_draw.items():
+            out.setdefault(name, {})[f"C{c}"] = {**rec[MAIN_DRAW],
+                                                 "library_ms": None}
+    rep_hw = {"deeplabv2": 41, "deeplabv3": 21, "unet": NAT_UNET_CROP}
+    out["pool_sims"] = {}
+    for model, hw in rep_hw.items():
+        f = hw * hw * (C if model == "unet" else NAT_C)
+        out["pool_sims"][model] = {"F": f, **_pool_sims_at(
+            gen, device, 2 * NAT_BS, f)}
+    return out
+
+
+def _natural_batch(b, hw, gen, device, num_classes):
+    """phase 4's label discs and an RGB image that follows them."""
+    import torch
+    image, label = _synthetic_batch(b, hw, gen, device, num_classes)
+    tint = torch.tensor([0.2, 0.5, 0.8], device=device).view(1, 3, 1, 1)
+    noise = 0.1 * torch.randn((b, 3, hw, hw), generator=gen, device=device)
+    return image * tint + noise, label
+
+
+def _natural_reference(device):
+    """(b) One small natural step (DeepLab-v2, one block a layer, 65x65,
+    4 classes, bs 2+2, BatchNorm affine frozen, photometric and AdvMorph
+    on) on the card in bf16 with the kernels against the same step on the
+    CPU in f32 with the plain versions: the same weights, pool, batch and
+    draws; phase 4's tolerance per loss term."""
+    import torch
+    from arco_torch.config import ArcoConfig
+    from arco_torch.models.deeplab import DeepLabV2
+    from arco_torch.train import arco2d
+    from arco_torch.train.freeze import apply_deeplab_bn_freeze
+    from arco_torch.train.schedule import make_optimizer
+    hw, b, nc = 65, 2, 4
+    cfg = ArcoConfig(K=4, num_queries=32, num_negatives=64,
+                     memobank_size=256, memobank_size_bg=512,
+                     memobank_enqueue=64, topk=2)
+    runs = []
+    for dev, dtype in (("cpu", torch.float32), (device, torch.bfloat16)):
+        torch.manual_seed(1)
+        mods = arco2d.make_arco_modules(
+            DeepLabV2(nc, (1, 1, 1, 1)), hw, hw, batch_size=b,
+            feature_channels=(256, 512, 1024, 2048), fused_dim=NAT_C)
+        state = arco2d.init_arco_state(mods, cfg, (b, 3, hw, hw), seed=1,
+                                       device=dev, compute_dtype=dtype)
+        state.optimizer = make_optimizer(
+            apply_deeplab_bn_freeze(state.model)
+            + list(state.feature_extractor.parameters())
+            + list(state.q_representation.parameters()), 0.01)
+        runs.append((state, arco2d.make_arco_step(
+            mods, cfg, num_classes=nc, max_iterations=100, device=dev)))
+    (ref_state, ref_step), (state, step) = runs
+    state.random_pool.copy_(ref_state.random_pool)
+    gen = torch.Generator().manual_seed(2)
+    image_l, label_l = _natural_batch(b, hw, gen, "cpu", nc)
+    image_u, _ = _natural_batch(b, hw, gen, "cpu", nc)
+    batch = {"image_l": image_l, "label_l": label_l, "image_u": image_u}
+    draws = _draws(cfg, b, b, hw, nc, gen)
+    want = ref_step(ref_state, batch, draws)
+    got = step(state, _to(batch, device), _to(draws, device))
+    out = {}
+    for k in ("loss", "reco_loss", "loss_q", "unsup_loss", "loss_ce",
+              "loss_dice", "loss_eqv"):
+        g, w = float(got[k]), float(want[k])
+        out[k] = (g, w)
+        _log(f"  reference (natural) {k}: card {g:.6f} cpu {w:.6f}")
+        if not abs(g - w) <= 2e-2 + 5e-2 * abs(w):
+            raise AssertionError(f"natural {k}: card {g} vs cpu {w}")
+    return out
+
+
+@contextlib.contextmanager
+def _timed_natural_steps(times):
+    """Wrap the natural CLI's step so each step's time, between two
+    synchronizations, lands in ``times`` (ms)."""
+    import torch
+    from arco_torch.cli import train_arco_natural
+    real = train_arco_natural.make_arco_step
+
+    def make(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def timed(state, batch, draws=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(state, batch, draws)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            return metrics
+        return timed
+    train_arco_natural.make_arco_step = make
+    try:
+        yield
+    finally:
+        train_arco_natural.make_arco_step = real
+
+
+def _natural_run(argv, steps, label):
+    """train_arco_natural.main(argv) for ``steps`` steps: its run
+    directory, per-step ms, the metrics rows, peak GiB and the launches;
+    every loss finite and each kernel launched once a step."""
+    import torch
+    from arco_torch.cli import train_arco_natural
+    from arco_torch.kernels import launch_counts, reset_launch_counts
+    times = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with _timed_natural_steps(times):
+        run = train_arco_natural.main(argv + ["--max_iterations",
+                                              str(steps)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rows = [json.loads(line)
+            for line in (Path(run) / "metrics.jsonl").read_text()
+            .splitlines()]
+    if not rows or not all(math.isfinite(v) for r in rows
+                           for v in r.values()):
+        raise AssertionError(f"{label}: metrics {rows}")
+    for name, n in counts.items():
+        if n != steps:
+            raise AssertionError(f"{label}: {name} launched {n} times in "
+                                 f"{steps} steps")
+    ips = [r["images_per_sec"] for r in rows]
+    _log(f"{label}: {steps} steps in {wall:.1f} s (set-up included); step "
+         f"ms {[round(t, 2) for t in times]}; img/s per log interval "
+         f"{[round(v, 2) for v in ips]}; peak {peak:.2f} GiB; losses "
+         f"{[round(r['loss'], 4) for r in rows]}; launches {counts}")
+    return Path(run), {"step_ms": times, "images_per_sec": ips,
+                       "peak_gib": peak, "wall_s": wall,
+                       "losses": [r["loss"] for r in rows]}, counts
+
+
+def _restore_check():
+    """Wrap load_torch_checkpoint so the load that --restore_from makes is
+    checked in place: afterwards the trunk equals the file and the
+    classifier, of another class count, keeps its initialization."""
+    import torch
+    from arco_torch.compat import torch_import
+    real = torch_import.load_torch_checkpoint
+    seen = {}
+
+    def checked(model, p):
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        copied = real(model, p)
+        sd = torch.load(p, map_location="cpu", weights_only=True)
+        after = model.state_dict()
+        for k, v in after.items():
+            if k.endswith("num_batches_tracked"):
+                continue
+            if k.startswith("layer5"):
+                ok = torch.equal(v, before[k])
+            else:
+                ok = torch.equal(v.cpu(), sd[f"module.{k}"])
+            if not ok:
+                raise AssertionError(f"restore: {k} is not as expected")
+        seen["copied"] = len(copied)
+        return copied
+    torch_import.load_torch_checkpoint = checked
+    return seen, lambda: setattr(torch_import, "load_torch_checkpoint", real)
+
+
+def phase_natural(device, workdir):
+    """Phase 12, the natural-image branch: (a) the kernels at its shapes;
+    (b) a small step on the card against the CPU; (c) train_arco_natural
+    at its defaults (DeepLab-v2 / ResNet-101, Pascal, 321x321, bs 4+4, 21
+    classes, bf16) on a synthetic VOC tree, 4 steps logging and
+    checkpointing every 2; (d) 2 steps of --model deeplabv3 and of --model
+    unet (--crop_size 320: its skip connections need a crop divisible by
+    16); (e) --resume_snapshot from (c)'s iter_4, 2 steps; (f)
+    --restore_from a module.-prefixed state dict of the phase's own
+    DeepLab-v2, checked right after the load, 2 steps; (g) eval_natural of
+    (c)'s iter_4 on the val images."""
+    import io
+    import torch
+    from arco_torch.cli import eval_natural
+    from arco_torch.data.synthetic import make_pascal_like
+    from arco_torch.models.deeplab import DeepLabV2
+    t_start = time.perf_counter()
+    out = {"kernels": phase_kernels_natural(device),
+           "reference": _natural_reference(device)}
+    root = make_pascal_like(str(workdir / "pascal"), NAT_TRAIN, NAT_VAL)
+    model_dir = str(workdir / "natural")
+    common = ["--root_path", root, "--dataset", "pascal", "--label_num",
+              str(NAT_LABEL_NUM), "--snapshot_dir", model_dir]
+    cli = common + ["--log_every", "2", "--ckpt_every", "2"]
+
+    run, out["deeplabv2"], counts = _natural_run(
+        cli + ["--exp", "natural/v2", "--model", "deeplabv2"], NAT_STEPS,
+        "train_arco_natural deeplabv2")
+    if not all((run / d).is_dir() for d in ("iter_2", "iter_4",
+                                            "full_iter_4")):
+        raise AssertionError(f"deeplabv2: checkpoints {os.listdir(run)}")
+    other = {}
+    for model, extra in (("deeplabv3", []),
+                         ("unet", ["--crop_size", str(NAT_UNET_CROP)])):
+        _, other[model], _ = _natural_run(
+            cli + ["--exp", f"natural/{model}", "--model", model] + extra,
+            NAT_OTHER_STEPS, f"train_arco_natural {model}")
+    out.update(other)
+
+    handoff, out["resume_snapshot"], _ = _natural_run(
+        cli + ["--exp", "natural/handoff", "--model", "deeplabv2",
+               "--resume_snapshot", str(run)], NAT_OTHER_STEPS,
+        "train_arco_natural --resume_snapshot")
+    if f"initialized model from {run} iter_{NAT_STEPS}" not in \
+            (handoff / "log.txt").read_text():
+        raise AssertionError("--resume_snapshot: no handoff in log.txt")
+
+    torch.manual_seed(5)
+    trunk = workdir / "trunk.pth"
+    torch.save({f"module.{k}": v for k, v in
+                DeepLabV2(7, (3, 4, 23, 3)).state_dict().items()}, trunk)
+    seen, undo = _restore_check()
+    try:
+        _, out["restore_from"], _ = _natural_run(
+            cli + ["--exp", "natural/restore", "--model", "deeplabv2",
+                   "--restore_from", str(trunk)], NAT_OTHER_STEPS,
+            "train_arco_natural --restore_from")
+    finally:
+        undo()
+    if not seen.get("copied"):
+        raise AssertionError("--restore_from: the load was not made")
+    out["restore_from"]["tensors_copied"] = seen["copied"]
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = eval_natural.main(common + ["--exp", "natural/v2", "--model",
+                                          "deeplabv2"])
+    eval_s = time.perf_counter() - t0
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if set(line) != {"iteration", "miou", "per_class_iou"} \
+            or line["iteration"] != NAT_STEPS \
+            or len(line["per_class_iou"]) != NAT_CLASSES \
+            or not 0.0 <= res["miou"] <= 1.0:
+        raise AssertionError(f"eval_natural printed {line}")
+    out["eval"] = {"miou": res["miou"], "s": eval_s}
+    _log(f"eval_natural of iter_{NAT_STEPS} on {NAT_VAL} val images in "
+         f"{eval_s:.2f} s: mIoU {res['miou']:.4f}")
+    out["s"] = time.perf_counter() - t_start
+    _log(f"phase 12 (natural) in {out['s']:.1f} s")
+    return counts, out
+
+
 def main():
     try:
         import torch
@@ -2099,19 +2390,24 @@ def main():
         unet3d = phase_unet3d(device, workdir, vols)
         zoo_counts, zoo = phase_zoo(device, workdir, root)
         rest = phase_rest(device, workdir, root, vols)
+        natural_counts, natural = phase_natural(device, workdir)
     for k in kernels:
         name = k["name"]
         k["launches"] = counts[name]
         k["launches_cli"] = cli_counts[name]
         k["launches_two_stage"] = two_counts[name]
         k["launches_zoo"] = zoo_counts[name]
+        k["launches_natural"] = natural_counts[name]
+        k["natural"] = natural["kernels"][name]
         k["3d"] = {**kernels_3d[name], "launches": counts_3d[name],
                    "launches_cli": cli3d_counts[name],
                    "launches_two_stage": two3d_counts[name]}
     print(json.dumps({"main_path": main_path, "cli": cli,
                       "two_stage": two_stage, "main_path_3d": main_path_3d,
                       "cli_3d": cli_3d, "two_stage_3d": two_stage_3d,
-                      "unet3d": unet3d, "zoo": zoo, "rest": rest}))
+                      "unet3d": unet3d, "zoo": zoo, "rest": rest,
+                      "natural": {k: v for k, v in natural.items()
+                                  if k != "kernels"}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
