@@ -17,7 +17,9 @@ nnUNet (sizes divisible by 32)
 only the U-Net's. The slices are staged on
 the device (data/device_bank.py) and drawn as the JAX CLI draws them. Every
 ``ckpt_every`` steps it writes the whole pretrain state to
-``iter_<N>``, and a rerun resumes from the newest one.
+``iter_<N>``, and a rerun resumes from the newest one. ``--pretrained_path``
+loads a local ImageNet checkpoint into ViT_Seg, swin_unet or efficient_unet
+(compat/pretrained.py) unless the run resumes its own checkpoint, as in JAX.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 
 from arco_torch import resolve_device
 from arco_torch.augment.photometric import batch_photometric
+from arco_torch.compat.pretrained import load_pretrained
 from arco_torch.config import TrainConfig, parse_args, patients_to_slices
 from arco_torch.data.datasets import SliceDataset
 from arco_torch.data.samplers import TwoStreamBatchSampler
@@ -105,10 +108,6 @@ def train(cfg: TrainConfig, snapshot_path: str, dataset=None):
     logging.getLogger().addHandler(logging.StreamHandler(sys.stdout))
     log_provenance()
     logging.info(str(cfg))
-    if cfg.pretrained_path:
-        raise NotImplementedError(
-            "--pretrained_path needs compat/pretrained.py, which is not "
-            "ported")
     # f32 convs and matmuls outside autocast stay f32: no TF32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -122,6 +121,16 @@ def train(cfg: TrainConfig, snapshot_path: str, dataset=None):
     torch.manual_seed(cfg.seed)       # the module weights
     model = net_factory(cfg.model, in_chns=cfg.data.in_channels,
                         class_num=num_classes, img_size=(h, w))
+    # a local ImageNet-pretrained backbone (the reference loads it when it
+    # builds the model, e.g. ViT_Seg's load_from), so that the student and
+    # the EMA teacher both start from it, BatchNorm statistics included
+    # where the file has them. Not on a resume: the resumed state trained
+    # from it already.
+    own = ckpt.latest_step(snapshot_path)
+    if cfg.pretrained_path and not own:
+        load_pretrained(cfg.model, cfg.pretrained_path, model)
+        logging.info("loaded pretrained backbone from %s",
+                     cfg.pretrained_path)
     modules = make_isd_modules(
         model, num_classes=num_classes,
         latent_feature_size=cfg.isd.latent_feature_size,
@@ -133,7 +142,6 @@ def train(cfg: TrainConfig, snapshot_path: str, dataset=None):
                                 seed=cfg.seed, device=device,
                                 compute_dtype=dtype)
     # crash resume: iter_<N> holds the whole pretrain state
-    own = ckpt.latest_step(snapshot_path)
     if own:
         logging.info("resuming pretrain state from iter_%d", own)
         ckpt.restore_state(snapshot_path, own, state)

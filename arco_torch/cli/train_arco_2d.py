@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from arco_torch import resolve_device
+from arco_torch.compat.pretrained import load_pretrained
 from arco_torch.config import TrainConfig, parse_args, patients_to_slices
 from arco_torch.data.datasets import SliceDataset, SynapseDataset
 from arco_torch.data.pipeline import (Prefetcher, TwoStreamPipeline,
@@ -101,10 +102,6 @@ def start_run(cfg: TrainConfig, snapshot_path: str) -> torch.device:
     logging.getLogger().addHandler(logging.StreamHandler(sys.stdout))
     log_provenance()
     logging.info(str(cfg))
-    if cfg.pretrained_path:
-        raise NotImplementedError(
-            "--pretrained_path needs compat/pretrained.py, which is not "
-            "ported")
     # f32 convs and matmuls outside autocast stay f32: no TF32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -114,19 +111,22 @@ def start_run(cfg: TrainConfig, snapshot_path: str) -> torch.device:
     return device
 
 
-def load_stage1(cfg: TrainConfig, model):
+def load_stage1(cfg: TrainConfig, model) -> bool:
     """Stage-1 handoff (train_arco_2d.py:223-226): student and teacher
-    start from the resumed experiment's newest iter_<N> weights."""
+    start from the resumed experiment's newest iter_<N> weights. True if
+    it loaded them."""
     if not cfg.resume:
-        return
+        return False
     resume_dir = os.path.join(
         cfg.snapshot_dir, f"{cfg.resume}_{cfg.data.labeled_num}_labeledfinal",
         cfg.model)
     step = ckpt.latest_step(resume_dir)
-    if step is not None:
-        logging.info("loading stage-1 checkpoint iter_%d from %s", step,
-                     resume_dir)
-        model.load_state_dict(ckpt.load_model_params(resume_dir, step))
+    if step is None:
+        return False
+    logging.info("loading stage-1 checkpoint iter_%d from %s", step,
+                 resume_dir)
+    model.load_state_dict(ckpt.load_model_params(resume_dir, step))
+    return True
 
 
 def resume_own(cfg: TrainConfig, snapshot_path: str, state):
@@ -227,7 +227,13 @@ def train(cfg: TrainConfig, snapshot_path: str):
     torch.manual_seed(cfg.seed)       # the module weights
     model = net_factory(cfg.model, in_chns=cfg.data.in_channels,
                         class_num=num_classes)
-    load_stage1(cfg, model)
+    # a local ImageNet-pretrained backbone, unless --resume loaded stage 1
+    # (arco_tpu/cli/train_arco_2d.py:102); the 3D CLIs ignore the flag, as
+    # JAX's do
+    if not load_stage1(cfg, model) and cfg.pretrained_path:
+        load_pretrained(cfg.model, cfg.pretrained_path, model)
+        logging.info("loaded pretrained backbone from %s",
+                     cfg.pretrained_path)
     modules = make_arco_modules(model, w, h, batch_size=b_l, total_batch=bs,
                                 tps_sigma=cfg.arco.tps_sigma)
     state = init_arco_state(modules, cfg.arco,

@@ -211,8 +211,8 @@ class TrainConfig:
     consistency_rampup: float = 200.0
     snapshot_dir: str = "../model"
     resume: str = ""                 # stage-1 checkpoint experiment name
-    # local pretrained checkpoint for the zoo backbones (not ported: the
-    # port's CLI refuses it)
+    # local pretrained checkpoint for the zoo backbones (ViT .npz, Swin and
+    # EfficientNet .pth; compat/pretrained.py); the 3D CLIs ignore it
     pretrained_path: str = ""
     ckpt_every: int = 1000
     # rolling full-state (optimizer, EMA, generator) checkpoint cadence for

@@ -35,8 +35,8 @@ _SIGNATURES = {
     "arco_infonce_smem": (_SZ, [_I, _I]),
     "arco_infonce_group": (_I, []),
     "arco_infonce_splits": (_I, []),
-    "arco_pool_sims": (_I, [_P, _P, _P, _P, _I, _I, _LL, _P]),
-    "arco_pool_sims_chunk": (_I, [_I]),
+    "arco_pool_sims": (_I, [_P, _P, _P, _P, _I, _I, _LL, _I, _P]),
+    "arco_pool_sims_blocks_per_sm": (_I, []),
 }
 
 _lib = None

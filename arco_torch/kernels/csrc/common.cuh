@@ -1,4 +1,4 @@
-// Device helpers shared by the port's kernels (infonce.cu, pool_sims.cu).
+// Device helpers of the port's kernels (infonce.cu).
 
 #pragma once
 

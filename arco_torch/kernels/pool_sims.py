@@ -15,6 +15,12 @@ from arco_torch.kernels import build
 
 LAUNCHES = {"pool_sims": 0}
 
+# (device index, stream) -> the kernel's workspace: a ticket the kernel
+# leaves at zero, then the F-blocks' partial sums. Reused by every launch on
+# that stream, which runs after the previous one ended.
+_WORKSPACES: dict = {}
+_MAX_BLOCKS: dict = {}
+
 
 def pool_similarities_plain(queries, pool, chunk: int = 1 << 20):
     """The contraction written as a sum of products, in F-chunks so that
@@ -29,10 +35,28 @@ def pool_similarities_plain(queries, pool, chunk: int = 1 << 20):
     return out
 
 
+def _workspace(lib, device, stream: int, b: int, k: int):
+    """(workspace, the F-blocks a launch may use) for ``stream``: 16 bytes
+    of ticket and max_blocks * round_up(b * k, 4) floats, allocated zeroed
+    once and grown when a launch needs more."""
+    idx = device.index
+    if idx not in _MAX_BLOCKS:
+        _MAX_BLOCKS[idx] = lib.arco_pool_sims_blocks_per_sm() * \
+            torch.cuda.get_device_properties(idx).multi_processor_count
+    max_blocks = _MAX_BLOCKS[idx]
+    need = 16 + max_blocks * (-(-b * k // 4) * 4) * 4
+    ws = _WORKSPACES.get((idx, stream))
+    if ws is None or ws.numel() < need:
+        ws = torch.zeros(need, dtype=torch.uint8, device=device)
+        _WORKSPACES[(idx, stream)] = ws
+    return ws, max_blocks
+
+
 def pool_similarities(queries, pool):
     """queries [B, F], pool [K, F] -> [B, K] f32 (bf16 inputs on CUDA).
-    Any B: up to 16 query rows share one pass over the pool, more go in
-    groups of 16 (csrc/pool_sims.cu)."""
+    Any B and K, F a multiple of 8: up to 16 query rows and 48 pool rows
+    share one pass over the operands, more go in groups
+    (csrc/pool_sims.cu)."""
     if queries.device.type == "cpu":
         return pool_similarities_plain(queries, pool)
     if queries.device.type != "cuda":
@@ -44,20 +68,18 @@ def pool_similarities(queries, pool):
                 or t.data_ptr() % 16:
             raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
                              f"2-D bf16 tensor on {queries.device}")
-    lib = build.load_library()
     b, f = queries.shape
     k = pool.shape[0]
-    if pool.shape[1] != f or f % 8 or b < 1:
+    if pool.shape[1] != f or f % 8 or b < 1 or k < 1:
         raise ValueError(f"queries {tuple(queries.shape)} / pool "
                          f"{tuple(pool.shape)}: F must match and be a "
-                         f"multiple of 8, B at least 1")
-    n_chunks = -(-f // lib.arco_pool_sims_chunk(b))
-    partial = torch.empty((n_chunks, b, k), dtype=torch.float32,
-                          device=queries.device)
+                         f"multiple of 8, B and K at least 1")
+    lib = build.load_library()
+    stream = build.stream_ptr(queries.device)
+    ws, max_blocks = _workspace(lib, queries.device, stream, b, k)
     out = torch.empty((b, k), dtype=torch.float32, device=queries.device)
     build.check(lib.arco_pool_sims(
-        queries.data_ptr(), pool.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), b, k, f, build.stream_ptr(queries.device)),
-        "pool_sims")
+        queries.data_ptr(), pool.data_ptr(), ws.data_ptr(), out.data_ptr(),
+        b, k, f, max_blocks, stream), "pool_sims")
     LAUNCHES["pool_sims"] += 1
     return out

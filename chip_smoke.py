@@ -9,10 +9,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
 2. build the CUDA kernels from ``arco_torch/kernels/csrc`` (nvcc, sm_90a);
 3. hold each kernel against its plain PyTorch version at the main path's
    shapes (bf16 inputs, f32 accumulation) and time kernel, plain version,
-   and for pool_sims the library matmul; the InfoNCE pair at three draws of
-   its negatives over full banks: uniform, and the sampler's 'smc' (the
-   main path's) and 'asmc' draws, each launch pair bit-identical to the
-   next; pool_sims also at 16 query rows (bs 8+8);
+   and for pool_sims the library matmul (one call, and its device time as
+   the kernel's); the InfoNCE pair at three draws of its negatives over
+   full banks: uniform, and the sampler's 'smc' (the main path's) and
+   'asmc' draws; pool_sims also at 16 query rows (bs 8+8); each kernel's
+   launch bit-identical to the next at every shape (here and in 8a, 12a);
 4. hold one small step on the card (bf16 autocast, kernels) against the
    same step on the CPU (f32, plain versions) from the same state, batch
    and draws: once with the strong augmentation off and once at the
@@ -114,7 +115,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``--restore_from`` a ``module.``-prefixed state dict of the phase's own
    DeepLab-v2, the trunk checked against the file right after the load;
    (g) ``eval_natural`` of (c)'s iter_4 on the val images, JAX's JSON
-   schema and an mIoU in [0, 1].
+   schema and an mIoU in [0, 1];
+13. drive ``--pretrained_path``: ``pretrain_2d --model ViT_Seg`` at its
+   defaults (the full R50+ViT-B_16 at 256x256) from a synthetic .npz of
+   the reference's names and shapes at the model's width, 2 steps on
+   phase 6's tree; the weights in the model right after the load must
+   equal ``compat.pretrained.convert_vit_npz``'s, every loss be finite and
+   no kernel launch.
 
 It then prints one JSON line with the phases' numbers, one with the
 kernels' numbers (each with its 3D record under "3d", whose
@@ -126,8 +133,8 @@ without the repository beside it, it prints no result and exits non-zero.
 
 Each kernel's "ms", "plain_ms" and "library_ms" time one call between two
 CUDA events, the host's work before the launch included. Its "device_ms"
-is the device's time per call alone: calls queued behind a GPU sleep,
-between two CUDA events.
+(and pool_sims' "library_device_ms") is the device's time per call alone:
+calls queued behind a GPU sleep, between two CUDA events.
 """
 
 from __future__ import annotations
@@ -395,8 +402,10 @@ def _infonce_draws(gen, device, caps, c, funcs):
 def _pool_sims_at(gen, device, b, f):
     """pool_sims on b queries of f features against POOL_K pool rows: each
     query near one pool row, so the sims span [0, ~0.7]; against its plain
-    version (max error at most 1e-3 of the largest |sim|), timed, and
-    torch.matmul timed as the library yardstick."""
+    version (max error at most 1e-3 of the largest |sim|), two launches
+    bit-identical, timed, and torch.matmul timed as the library yardstick
+    ("library_ms" one call, "library_device_ms" as the kernel's
+    "device_ms")."""
     import torch
     from arco_torch.kernels import pool_sims
     bf = torch.bfloat16
@@ -415,22 +424,28 @@ def _pool_sims_at(gen, device, b, f):
     if not err <= 1e-3 * scale:
         raise AssertionError(f"pool_sims ({b} x {f}): max err {err} > "
                              f"1e-3 * {scale}")
+    # the revisiting loss takes top-k of these: the same bits every launch
+    if not torch.equal(sims, pool_sims.pool_similarities(queries, pool)):
+        raise AssertionError(f"pool_sims ({b} x {f}): two launches differ")
     bound, by = _bound_ms((b + POOL_K) * f * 2 + sims.numel() * 4,
                           2 * b * POOL_K * f)
 
     def sims_fn():
         return pool_sims.pool_similarities(queries, pool)
+
+    def matmul():
+        return torch.matmul(queries, pool.t())
     out = {"max_abs_err": err, "ms": _time_ms(sims_fn, 20),
            "device_ms": _device_ms(sims_fn, 20),
            "plain_ms": _time_ms(
                lambda: pool_sims.pool_similarities_plain(queries, pool), 3),
            "bound_ms": bound, "bound_by": by,
-           "library_ms": _time_ms(lambda: torch.matmul(queries, pool.t()),
-                                  20)}
+           "library_ms": _time_ms(matmul, 20),
+           "library_device_ms": _device_ms(matmul, 20)}
     _log(f"pool_sims ({b} x {f}): max err {err:.3g} of max |sims| "
          f"{scale:.3g}; {out['ms']:.4f} ms (device {out['device_ms']:.4f}), "
          f"bound {bound:.4f}, plain {out['plain_ms']:.3f}, matmul "
-         f"{out['library_ms']:.4f}")
+         f"{out['library_ms']:.4f} (device {out['library_device_ms']:.4f})")
     del pool, queries
     torch.cuda.empty_cache()
     return out
@@ -2352,6 +2367,132 @@ def phase_natural(device, workdir):
     return counts, out
 
 
+# phase 13: --pretrained_path (compat/pretrained.py) on the ViT_Seg stage 1
+VIT_WIDTH = dict(hidden=768, mlp=3072, heads=12, layers=12)
+
+
+def _vit_npz(path, seed=13):
+    """A synthetic R50+ViT-B_16 .npz from a seed: the reference's key names
+    and shapes at the model's width (the R50 stem of units 3/4/9, hidden
+    768, 12 heads, MLP 3072, 12 blocks, a 14x14 + class-token position
+    embedding)."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    hid, mlp, heads, layers = (VIT_WIDTH[k] for k in
+                               ("hidden", "mlp", "heads", "layers"))
+    rand = lambda *shape: (0.02 * rs.randn(*shape)).astype(np.float32)
+    near1 = lambda *shape: (1 + 0.1 * rs.randn(*shape)).astype(np.float32)
+    w = {"conv_root/kernel": rand(7, 7, 3, 64),
+         "gn_root/scale": near1(64), "gn_root/bias": rand(64),
+         "embedding/kernel": rand(1, 1, 1024, hid),
+         "embedding/bias": rand(hid),
+         "Transformer/encoder_norm/scale": near1(hid),
+         "Transformer/encoder_norm/bias": rand(hid),
+         "Transformer/posembed_input/pos_embedding": rand(1, 197, hid)}
+    cin = 64
+    for stage, (n_units, cout) in enumerate(zip((3, 4, 9),
+                                                (256, 512, 1024))):
+        cmid = cout // 4
+        for u in range(1, n_units + 1):
+            pre = f"block{stage + 1}/unit{u}/"
+            w[pre + "conv1/kernel"] = rand(1, 1, cin, cmid)
+            w[pre + "conv2/kernel"] = rand(3, 3, cmid, cmid)
+            w[pre + "conv3/kernel"] = rand(1, 1, cmid, cout)
+            gns = [("gn1", cmid), ("gn2", cmid), ("gn3", cout)]
+            if u == 1:
+                w[pre + "conv_proj/kernel"] = rand(1, 1, cin, cout)
+                gns.append(("gn_proj", cout))
+            for g, ch in gns:
+                w[pre + f"{g}/scale"] = near1(1, 1, ch)
+                w[pre + f"{g}/bias"] = rand(1, 1, ch)
+            cin = cout
+    for i in range(layers):
+        pre = f"Transformer/encoderblock_{i}/"
+        att = pre + "MultiHeadDotProductAttention_1/"
+        for name in ("query", "key", "value"):
+            w[att + f"{name}/kernel"] = rand(hid, heads, hid // heads)
+            w[att + f"{name}/bias"] = rand(heads, hid // heads)
+        w[att + "out/kernel"] = rand(heads, hid // heads, hid)
+        w[att + "out/bias"] = rand(hid)
+        for ln in ("LayerNorm_0", "LayerNorm_2"):
+            w[pre + f"{ln}/scale"] = near1(hid)
+            w[pre + f"{ln}/bias"] = rand(hid)
+        w[pre + "MlpBlock_3/Dense_0/kernel"] = rand(hid, mlp)
+        w[pre + "MlpBlock_3/Dense_0/bias"] = rand(mlp)
+        w[pre + "MlpBlock_3/Dense_1/kernel"] = rand(mlp, hid)
+        w[pre + "MlpBlock_3/Dense_1/bias"] = rand(hid)
+    np.savez(path, **w)
+    return w
+
+
+def phase_pretrained(device, workdir, root):
+    """Phase 13, ``--pretrained_path``: ``pretrain_2d --model ViT_Seg`` at
+    its defaults (256x256, the full R50+ViT-B_16) from a synthetic .npz of
+    the reference's names and shapes, 2 steps on phase 6's tree. The
+    weights in the model right after the load must equal the converter's
+    output, every loss must be finite, and no kernel launches (stage 1
+    reaches none)."""
+    import torch
+    from arco_torch.cli import pretrain_2d
+    from arco_torch.compat.pretrained import convert_vit_npz
+    from arco_torch.data.datasets import SynapseDataset
+    from arco_torch.kernels import launch_counts, reset_launch_counts
+    t_start = time.perf_counter()
+    npz = workdir / "R50+ViT-B_16.npz"
+    w = _vit_npz(npz)
+    cfg, snap = pretrain_2d.parse([
+        "--root_path", root, "--labeled_num", "1", "--snapshot_dir",
+        str(workdir / "pretrained"), "--log_every", "1", "--ckpt_every",
+        "2", "--exp", "Synapse/vit_pre", "--model", "ViT_Seg",
+        "--pretrained_path", str(npz), "--max_iterations", "2"])
+    loaded = {}
+    load = pretrain_2d.load_pretrained
+
+    def checked(model, path, module):
+        names = load(model, path, module)
+        sd = module.state_dict()
+        loaded.update({k: sd[k].detach().clone() for k in names})
+        loaded["n_tokens"] = int(module.pos_embedding.shape[1])
+        return names
+    pretrain_2d.load_pretrained = checked
+    reset_launch_counts()
+    try:
+        pretrain_2d.train(cfg, snap, dataset=SynapseDataset(
+            root, root, "train", output_size=cfg.data.patch_size))
+    finally:
+        pretrain_2d.load_pretrained = load
+    torch.cuda.synchronize()
+    if any(launch_counts().values()):
+        raise AssertionError(f"pretrained: kernels launched "
+                             f"{launch_counts()}")
+    want = convert_vit_npz(w, loaded.pop("n_tokens"))
+    if sorted(loaded) != sorted(want):
+        raise AssertionError("pretrained: loaded other tensors than the "
+                             "converter gives")
+    bad = [k for k, v in want.items() if not torch.equal(loaded[k], v)]
+    if bad:
+        raise AssertionError(f"pretrained: {len(bad)} tensors differ from "
+                             f"the file, e.g. {bad[:3]}")
+    rows = [json.loads(line) for line in
+            (Path(snap) / "metrics.jsonl").read_text().splitlines()]
+    if len(rows) != 2 or not all(math.isfinite(r[k]) for r in rows
+                                 for k in ("loss", "loss_latent",
+                                           "loss_output")):
+        raise AssertionError(f"pretrained: metrics {rows}")
+    if "loaded pretrained backbone" not in (Path(snap) / "log.txt") \
+            .read_text():
+        raise AssertionError("pretrained: the log does not say it loaded")
+    out = {"tensors_loaded": len(want),
+           "values_loaded": sum(v.numel() for v in want.values()),
+           "losses": [r["loss"] for r in rows],
+           "s": time.perf_counter() - t_start}
+    _log(f"pretrain_2d --model ViT_Seg --pretrained_path: {len(want)} "
+         f"tensors ({out['values_loaded']} values) equal to the file, "
+         f"losses {[round(v, 4) for v in out['losses']]}; phase 13 in "
+         f"{out['s']:.1f} s")
+    return out
+
+
 def main():
     try:
         import torch
@@ -2391,6 +2532,7 @@ def main():
         zoo_counts, zoo = phase_zoo(device, workdir, root)
         rest = phase_rest(device, workdir, root, vols)
         natural_counts, natural = phase_natural(device, workdir)
+        pretrained = phase_pretrained(device, workdir, root)
     for k in kernels:
         name = k["name"]
         k["launches"] = counts[name]
@@ -2407,7 +2549,8 @@ def main():
                       "cli_3d": cli_3d, "two_stage_3d": two_stage_3d,
                       "unet3d": unet3d, "zoo": zoo, "rest": rest,
                       "natural": {k: v for k, v in natural.items()
-                                  if k != "kernels"}}))
+                                  if k != "kernels"},
+                      "pretrained": pretrained}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

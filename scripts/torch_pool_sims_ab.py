@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """Time the pool_sims kernel of several checkouts of the PyTorch port on one
 CUDA GPU, at the shapes of ``chip_smoke.py``: 4 query rows of the 2D path's
-F = 496 x 256 x 256 and of the 3D path's F = 16 x 112 x 112 x 80, and 16
-rows of the 2D F (bs 8+8), each against 36 pool rows.
+F = 496 x 256 x 256 and of the 3D path's F = 16 x 112 x 112 x 80, 16 rows
+of the 2D F (bs 8+8), and the natural path's 8 rows at DeepLab-v2's F = 41
+x 41 x 256, DeepLab-v3+'s 21 x 21 x 256 and the U-Net's 320 x 320 x 496,
+each against 36 pool rows, with ``torch.matmul(queries, pool.t())`` timed
+beside it.
 
     python3 scripts/torch_pool_sims_ab.py ROOT [ROOT ...]
 
@@ -13,7 +16,8 @@ see the drift between runs. Each result is held against the plain version
 (max error at most 1e-3 of the largest |sim|). Per root and shape it prints
 one JSON line: "ms" is one call between two CUDA events and "device_ms" the
 device's time per call (calls queued behind a GPU sleep), as
-``chip_smoke.py`` takes them; a shape a checkout's wrapper refuses (the
+``chip_smoke.py`` takes them, "matmul_ms" and "matmul_device_ms" the same
+of the matmul; a shape a checkout's wrapper refuses (the
 16-row one, where the kernel took at most 8 rows) is printed as refused. A
 table of all roots follows.
 """
@@ -30,7 +34,10 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 SHAPES = {"2d_4rows": (4, 496 * 256 * 256),
           "3d_4rows": (4, 16 * 112 * 112 * 80),
-          "2d_16rows": (16, 496 * 256 * 256)}
+          "2d_16rows": (16, 496 * 256 * 256),
+          "nat_8rows_v2": (8, 41 * 41 * 256),
+          "nat_8rows_v3": (8, 21 * 21 * 256),
+          "nat_8rows_unet": (8, 320 * 320 * 496)}
 
 
 def run_one(root: Path):
@@ -67,9 +74,13 @@ def run_one(root: Path):
         if not err <= 1e-3 * want.abs().max().item():
             raise AssertionError(f"{root} {name}: max err {err}")
         fn = lambda: pool_sims.pool_similarities(queries, pool)
+        mm = lambda: torch.matmul(queries, pool.t())
         print(json.dumps({**row, "max_abs_err": err,
                           "ms": cs._time_ms(fn, 20),
-                          "device_ms": cs._device_ms(fn, 20)}), flush=True)
+                          "device_ms": cs._device_ms(fn, 20),
+                          "matmul_ms": cs._time_ms(mm, 20),
+                          "matmul_device_ms": cs._device_ms(mm, 20)}),
+              flush=True)
         del pool, queries
         torch.cuda.empty_cache()
 
@@ -94,13 +105,14 @@ def main(argv):
             if line.startswith("{"):
                 print(line, flush=True)
                 rows.append((i, json.loads(line)))
-    print("run  root  shape  ms  device_ms")
+    print("run  root  shape  ms  device_ms  matmul_ms  matmul_device_ms")
     for i, r in sorted(rows, key=lambda x: (x[1]["shape"], x[0])):
         if "refused" in r:
             print(f"{i} {r['root']} {r['shape']} refused")
             continue
         print(f"{i} {r['root']} {r['shape']} {r['ms']:.4f} "
-              f"{r['device_ms']:.4f}")
+              f"{r['device_ms']:.4f} {r['matmul_ms']:.4f} "
+              f"{r['matmul_device_ms']:.4f}")
     return 0
 
 

@@ -11,7 +11,7 @@ patches of a synthetic LA tree (48x48x32 h5 volumes) with small banks.
   (arco_tpu.data.device_bank: two_stream_device_batches over two
   DeviceVolumeBanks), exactly.
 - ``--resume`` starts a run from another experiment's newest V-Net
-  iter_<N>.
+  iter_<N>; ``--pretrained_path`` is accepted and ignored, as in JAX.
 - ``test_3d`` evaluates iter_6 by sliding window, with the case on the
   device or summed on the host (the same metrics), and sweeps checkpoints.
 """
@@ -155,9 +155,20 @@ def test_resume_handoff_loads_a_vnet_checkpoint(trained):
 
 
 def test_pretrained_path_is_refused(trained, tmp_path):
-    with pytest.raises(NotImplementedError, match="pretrained_path"):
-        train_arco_3d.main(_argv(trained["root"], str(tmp_path), "LA/x", 1,
-                                 "--pretrained_path", "w.pth"))
+    """--pretrained_path is accepted and ignored, as JAX's 3D CLIs never
+    read it: the run starts from the same weights as one without it (the
+    file does not exist)."""
+    for exp, extra in (("LA/x", ("--pretrained_path", "w.pth")),
+                       ("LA/y", ())):
+        train_arco_3d.main(_argv(trained["root"], str(tmp_path), exp, 0,
+                                 *extra))
+    load = lambda exp: torch.load(os.path.join(
+        str(tmp_path), f"{exp}_2_labeledfinal", "vnet", "full_iter_0",
+        "state.pt"), weights_only=True)["model"]
+    got, want = load("LA/x"), load("LA/y")
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
 
 
 def _test_3d_argv(trained, *extra):

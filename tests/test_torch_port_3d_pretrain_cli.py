@@ -16,7 +16,8 @@ synthetic LA tree (48x48x32 h5 volumes) and of in-memory volumes.
   pretrain's newest iter_<N> V-Net, bit for bit.
 - ``--model unet_3D`` and ``attention_unet`` pretrain and evaluate through
   ``test_3d``; ``--train_encoder`` / ``--train_decoder`` freeze a V-Net
-  half and are refused for the 3-D U-Nets.
+  half and are refused for the 3-D U-Nets; ``--pretrained_path`` is
+  accepted and ignored, as in JAX.
 """
 
 import dataclasses
@@ -326,3 +327,19 @@ def test_unet3d_refuses_the_freeze_flags(pretrained, tmp_path):
         pretrain_3d.main(_argv(pretrained["root"], str(tmp_path), "LA/no",
                                1, "--model", "unet_3D", "--train_decoder",
                                "False"))
+
+
+def test_pretrained_path_is_accepted_and_ignored(pretrained, tmp_path):
+    """As JAX's pretrain_3d, which never reads the flag: the run starts
+    from the same weights as one without it (the file does not exist)."""
+    for exp, extra in (("LA/x", ("--pretrained_path", "w.pth")),
+                       ("LA/y", ())):
+        pretrain_3d.main(_argv(pretrained["root"], str(tmp_path), exp, 0,
+                               *extra))
+    load = lambda exp: torch.load(os.path.join(
+        str(tmp_path), f"{exp}_2_labeledfinal", "vnet", "iter_0",
+        "state.pt"), weights_only=True)
+    got, want = load("LA/x"), load("LA/y")
+    for name in ("model", "ema_model"):
+        for k, v in want[name].items():
+            assert torch.equal(got[name][k], v), f"{name}.{k}"

@@ -161,13 +161,16 @@ def test_fused_infonce_autograd_matches_plain(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,k", [(1, 5), (4, 36), (8, 3), (9, 36), (16, 36),
-                                 (21, 4)])
-def test_pool_sims_matches_plain(cuda, b, k):
-    """F not a multiple of the kernel's 4096- or 2048-element chunk; 9 and
-    16 query rows on one pass of the pool, 21 in groups of 16 + 5."""
-    f = 3 * 4096 + 8
-    gen = torch.Generator(device=cuda).manual_seed(b)
+@pytest.mark.parametrize("f", [3 * 4096 + 8, 296])
+@pytest.mark.parametrize("k", [1, 16, 36, 37, 48, 49])
+@pytest.mark.parametrize("b", [1, 4, 8, 9, 16, 17])
+def test_pool_sims_matches_plain(cuda, b, k, f):
+    """The kernel's edges: one n8 tile of query rows (1-8), two (9-16), a
+    second group of 16 (17); pool rows inside one m16 tile, across tiles,
+    a full 48-row group and a second group (49); F not a multiple of the
+    32-feature step, and F = 296, whose 10 steps give fewer warps than the
+    card has SMs."""
+    gen = torch.Generator(device=cuda).manual_seed(100 * b + k)
     q = torch.randn((b, f), generator=gen, device=cuda).to(torch.bfloat16)
     p = torch.randn((k, f), generator=gen, device=cuda).to(torch.bfloat16)
     got = pool_sims.pool_similarities(q, p)
@@ -175,6 +178,19 @@ def test_pool_sims_matches_plain(cuda, b, k):
     want = pool_sims.pool_similarities_plain(q, p)
     torch.testing.assert_close(got, want, rtol=1e-3,
                                atol=1e-3 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,f", [(4, 496 * 64 * 64), (8, 41 * 41 * 256),
+                                 (16, 496 * 64 * 64)])
+def test_pool_sims_is_bit_identical_from_launch_to_launch(cuda, b, f):
+    """The revisiting loss takes top-k of these sims: two launches on the
+    same inputs give the same bits (fixed-order sums, no float atomics)."""
+    gen = torch.Generator(device=cuda).manual_seed(b)
+    q = torch.randn((b, f), generator=gen, device=cuda).to(torch.bfloat16)
+    p = torch.randn((36, f), generator=gen, device=cuda).to(torch.bfloat16)
+    first = pool_sims.pool_similarities(q, p)
+    assert torch.equal(first, pool_sims.pool_similarities(q, p))
 
 
 @pytest.mark.cuda
