@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from arco_torch.ops.collectives import all_reduce_sum
+
 
 class DiceLossState:
     """Placeholder kept for the JAX package's import surface; dice_loss is
@@ -24,10 +26,12 @@ def one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  ignore_index: int = -1, reduction: str = "mean"):
+                  ignore_index: int = -1, reduction: str = "mean",
+                  group=None):
     """torch F.cross_entropy semantics with ``ignore_index`` (which may lie
     outside [0, K), as 255 does: the masked entries read a clamped index,
-    as JAX's gather clamps)."""
+    as JAX's gather clamps). ``group``: a process group whose ranks hold
+    the rest of the batch; the mean is then taken over all of it."""
     valid = labels != ignore_index
     safe = labels.clamp(0, logits.shape[-1] - 1).long()
     logp = torch.log_softmax(logits.float(), dim=-1)
@@ -37,18 +41,27 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
         return nll
     if reduction == "sum":
         return nll.sum()
-    return nll.sum() / valid.sum().clamp(min=1)
+    total, count = nll.sum(), valid.sum()
+    if group is not None:
+        total, count = all_reduce_sum(
+            torch.stack([total, count.to(total.dtype)]), group)
+    return total / count.clamp(min=1)
 
 
 def dice_loss(probs: torch.Tensor, labels: torch.Tensor, num_classes: int,
-              weight=None, smooth: float = 1e-5):
-    """Per-class soft dice with whole-batch sums, averaged over classes."""
+              weight=None, smooth: float = 1e-5, group=None):
+    """Per-class soft dice with whole-batch sums, averaged over classes.
+    ``group``: a process group whose ranks hold the rest of the batch; the
+    sums then run over all of it."""
     target = one_hot(labels, num_classes)
     probs = probs.float()
     dims = tuple(range(probs.ndim - 1))
     intersect = (probs * target).sum(dims)
     y_sum = (target * target).sum(dims)
     z_sum = (probs * probs).sum(dims)
+    if group is not None:
+        intersect, y_sum, z_sum = all_reduce_sum(
+            torch.stack([intersect, y_sum, z_sum]), group)
     loss = 1.0 - (2.0 * intersect + smooth) / (z_sum + y_sum + smooth)
     if weight is not None:
         loss = loss * torch.as_tensor(weight, device=loss.device)

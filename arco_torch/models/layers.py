@@ -14,6 +14,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from arco_torch.ops.interpolate import resize_bilinear
+from arco_torch.ops.collectives import all_reduce_sum
 
 
 def leaky_relu(x):
@@ -29,7 +30,13 @@ class _FlaxBatchNorm:
     at the 2x2 bottleneck of a 32² batch of 2), so the running update is
     done here by hand, over every dim but the channels. Normalization
     itself uses the batch statistics, as both frameworks do in train
-    mode. flax's default momentum 0.99 is ``momentum=0.01`` here."""
+    mode. flax's default momentum 0.99 is ``momentum=0.01`` here.
+
+    ``stats_group`` (set inside ``sync_batch_norm``): a process group over
+    whose ranks' whole batch the train-mode statistics are taken; None
+    takes this process's batch."""
+
+    stats_group = None
 
     def __init__(self, num_features: int, affine: bool = True,
                  momentum: float = 0.1):
@@ -43,29 +50,57 @@ class _FlaxBatchNorm:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
+        dims = (0,) + tuple(range(2, x.ndim))
+        if self.stats_group is not None:
+            # the group's whole batch: the mean (one all-reduce of the
+            # per-channel sums and the element count), then the biased
+            # variance around it, each summed over every rank through a
+            # differentiable all-reduce (two passes, as one process
+            # computes them over the whole batch)
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
+            sums = all_reduce_sum(torch.cat([xf.sum(dims), xf.new_full(
+                (1,), x.numel() / x.shape[1])]), self.stats_group)
+            mean, count = sums[:-1] / sums[-1], sums[-1]
+            d = xf - mean.view(_channel_shape(x))
+            var = all_reduce_sum((d * d).sum(dims), self.stats_group) / count
+            if self.update_stats:
+                self._update_running(mean, var)
+            return self._normalize(xf, mean, var).to(x.dtype)
         if self.update_stats:
             with torch.no_grad():
-                dims = (0,) + tuple(range(2, x.ndim))
                 var, mean = torch.var_mean(x.float(), dim=dims,
                                            correction=0)
-                self.running_mean.mul_(1 - self.momentum).add_(
-                    mean, alpha=self.momentum)
-                self.running_var.mul_(1 - self.momentum).add_(
-                    var, alpha=self.momentum)
+            self._update_running(mean, var)
         if x.numel() == x.shape[1]:
             # one value per channel (the DeepLab-v3+ ASPP's pooled branch at
             # batch 1): torch's batch_norm refuses it, flax normalizes it to
             # zero; the same formula here, so the gradient is flax's too
             xf = x.to(torch.promote_types(x.dtype, torch.float32))
-            var, mean = torch.var_mean(xf, dim=(0,) + tuple(range(2, x.ndim)),
-                                       correction=0, keepdim=True)
-            y = (xf - mean) * torch.rsqrt(var + self.eps)
-            if self.affine:
-                shape = (1, -1) + (1,) * (x.ndim - 2)
-                y = y * self.weight.view(shape) + self.bias.view(shape)
-            return y.to(x.dtype)
+            var, mean = torch.var_mean(xf, dim=dims, correction=0)
+            return self._normalize(xf, mean, var).to(x.dtype)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+    @torch.no_grad()
+    def _update_running(self, mean, var):
+        self.running_mean.mul_(1 - self.momentum).add_(
+            mean, alpha=self.momentum)
+        self.running_var.mul_(1 - self.momentum).add_(
+            var, alpha=self.momentum)
+
+    def _normalize(self, xf, mean, var):
+        """(xf - mean) / sqrt(var + eps), then the affine map; mean and
+        var per channel."""
+        shape = _channel_shape(xf)
+        y = (xf - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
+        if self.affine:
+            y = y * self.weight.view(shape) + self.bias.view(shape)
+        return y
+
+
+def _channel_shape(x):
+    """The shape that broadcasts a per-channel vector over x [B, C, ...]."""
+    return (1, -1) + (1,) * (x.ndim - 2)
 
 
 class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
@@ -111,6 +146,22 @@ def running_stats_frozen(module: nn.Module):
     finally:
         for m in bns:
             m.update_stats = True
+
+
+@contextlib.contextmanager
+def sync_batch_norm(module: nn.Module, group):
+    """Train-mode forwards of ``module`` inside the block take every
+    BatchNorm's statistics over the whole batch of ``group``'s ranks, as one
+    process over that batch takes them (JAX's global batch statistics under
+    data sharding); ``group=None`` leaves them per process."""
+    bns = [m for m in module.modules() if isinstance(m, _FlaxBatchNorm)]
+    for m in bns:
+        m.stats_group = group
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.stats_group = None
 
 
 def dropout(x, p: float, mask=None, generator=None, training: bool = True):

@@ -121,14 +121,38 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the reference's names and shapes at the model's width, 2 steps on
    phase 6's tree; the weights in the model right after the load must
    equal ``compat.pretrained.convert_vit_npz``'s, every loss be finite and
-   no kernel launch.
+   no kernel launch;
+14. drive the serving surface, which runs no kernel (every launch count
+   stays 0): (a) one small supervised step (``train/supervised.py``, U-Net
+   64x64, 4 classes, bs 2, f32) on the card against the CPU from the same
+   weights, batch and dropout masks at phase 4's tolerance, then the U-Net
+   at 256x256, 4 classes, bs 4 for 5 steps through ``step_timer`` (ms a
+   step, peak memory); (b) ``measure_fp_time`` and ``measure_fp_bp_time``
+   of that U-Net at bs 4, and ``trace()`` around two supervised steps,
+   whose Chrome trace must hold CUDA kernel events; (c)
+   ``Segmenter.from_snapshot`` of phase 6's iter_6 on an in-memory
+   12x224x240 volume, its labels equal to ``eval/slice2d``'s (s a case);
+   (d) ``test_synapse`` on two in-memory volumes against a seeded 8-class
+   U-Net checkpoint, its JSON line finite and in range; (e)
+   ``Segmenter3D.from_snapshot`` of phase 8d's iter_6 on a 144x144x88
+   volume, equal to the sliding window called directly (s a case); (f)
+   ``predict_volume_sharded`` of that V-Net over a one-rank NCCL process
+   group, against the unsharded whole-volume forward (>= 97% agreement,
+   scores within 1e-3 away from the depth edges and labels equal there
+   but at near-ties, the input's shape, int32); (g)
+   ``export_model --batch dynamic --output argmax --device cuda`` of
+   phase 6's iter_6, the artifact equal to the eager model at batch 1, 3
+   and 8, a softmax export within 1e-5, a CPU-traced artifact moved to the
+   card equal too, artifact and eager ms at bs 8; (h) ``repro
+   --validate``.
 
-It then prints one JSON line with the phases' numbers, one with the
-kernels' numbers (each with its 3D record under "3d", whose
-"launches_two_stage" counts phase 9's handoff leg; "launches_zoo" counts
-phase 10's unet_stego leg and "launches_natural" phase 12's DeepLab-v2
-leg, whose shapes' records sit under "natural"; pool_sims also at 16
-query rows under "rows16") and, last, the device line. Without a CUDA GPU, or
+It then prints one JSON line with the phases' numbers (phase 14's under
+"serving"), one with the kernels' numbers (each with its 3D record under
+"3d", whose "launches_two_stage" counts phase 9's handoff leg;
+"launches_zoo" counts phase 10's unet_stego leg and "launches_natural"
+phase 12's DeepLab-v2 leg, whose shapes' records sit under "natural";
+pool_sims also at 16 query rows under "rows16") and, last, the device
+line. Without a CUDA GPU, or
 without the repository beside it, it prints no result and exits non-zero.
 
 Each kernel's "ms", "plain_ms" and "library_ms" time one call between two
@@ -2493,6 +2517,399 @@ def phase_pretrained(device, workdir, root):
     return out
 
 
+# phase 14: the serving surface (train/supervised.py, utils/profiling.py,
+# inference.py with the sharded forward, export.py, cli/test_synapse.py,
+# cli/export_model.py, repro.py) at full width; no kernel on its path
+SUP_HW, SUP_CLASSES, SUP_BS, SUP_STEPS = 256, 4, 4, 5
+# card vs CPU, both f32 with TF32 off: the losses agree to ~7 digits and the
+# weights after one step within ~1e-7, so these bounds leave ~100x headroom
+# and fail a step computed in bf16 or a wrong update
+SUP_RTOL, SUP_W_ATOL = 1e-5, 1e-5
+SYN_CLASSES, SERVE_DEPTH, LA_CASE = 8, 12, (144, 144, 88)
+
+
+def _supervised(device, hw, bs, nc, seed=0, dev=None):
+    """A seeded U-Net's supervised state and step on ``dev``, a seeded
+    batch and dropout masks (made on the CPU)."""
+    import torch
+    from arco_torch.models import net_factory
+    from arco_torch.train.supervised import (PolySGD, init_supervised_state,
+                                             make_supervised_step)
+    torch.manual_seed(seed)
+    model = net_factory("unet", in_chns=1, class_num=nc)
+    gen = torch.Generator().manual_seed(seed + 1)
+    image, label = _synthetic_batch(bs, hw, gen, "cpu", num_classes=nc)
+    masks = model.train().draw_dropout_masks(image.shape, gen)
+    tx = PolySGD(0.01, 100)
+    state = init_supervised_state(model, tx, seed=seed, device=dev or device)
+    step = make_supervised_step(model, tx, nc)
+    return state, step, {"image": image, "label": label}, masks
+
+
+def _serving_supervised(device):
+    """(a) one small supervised step on the card against the CPU (same
+    weights, batch and dropout masks; f32, TF32 off): the losses within
+    rtol SUP_RTOL and every weight after the update within SUP_W_ATOL,
+    then SUP_STEPS full-width steps through step_timer."""
+    import torch
+    from arco_torch.utils.profiling import step_timer
+    got, want = {}, {}
+    for dev, rec in ((device, got), (torch.device("cpu"), want)):
+        state, step, batch, masks = _supervised(device, 64, 2, SUP_CLASSES,
+                                                dev=dev)
+        _, m = step(state, _to(batch, dev), _to(masks, dev))
+        rec.update({k: float(v) for k, v in m.items()})
+        rec["weights"] = {k: v.detach().cpu() for k, v in
+                          state.model.state_dict().items()}
+    w_err = max((got["weights"][k].double() - v.double()).abs().max().item()
+                for k, v in want["weights"].items() if v.is_floating_point())
+    for k in ("loss", "loss_ce", "loss_dice"):
+        _log(f"  supervised step {k}: card {got[k]:.6f} cpu {want[k]:.6f}")
+        if not abs(got[k] - want[k]) <= SUP_RTOL * abs(want[k]):
+            raise AssertionError(f"supervised {k}: card {got[k]} vs cpu "
+                                 f"{want[k]} (rtol {SUP_RTOL})")
+    if not w_err <= SUP_W_ATOL:
+        raise AssertionError(f"supervised: card vs cpu weights differ by "
+                             f"{w_err} after the step (> {SUP_W_ATOL})")
+    state, step, batch, _ = _supervised(device, SUP_HW, SUP_BS, SUP_CLASSES)
+    batch = _to(batch, device)
+    torch.cuda.reset_peak_memory_stats()
+    secs, state = step_timer(step, state, batch, n=SUP_STEPS, warmup=2)
+    _, m = step(state, batch)
+    if not all(math.isfinite(float(v)) for v in m.values()) \
+            or state.step != SUP_STEPS + 3:
+        raise AssertionError(f"supervised: step {state.step}, metrics {m}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _log(f"supervised U-Net {SUP_HW}^2 bs {SUP_BS}: {secs * 1e3:.2f} ms a "
+         f"step (step_timer, {SUP_STEPS} steps after 2), peak {peak:.2f} "
+         f"GiB; card vs cpu max weight diff {w_err:.3e}")
+    return {"card_vs_cpu": {k: [got[k], want[k]] for k in
+                            ("loss", "loss_ce", "loss_dice")},
+            "card_vs_cpu_weight_err": w_err, "step_ms": secs * 1e3,
+            "peak_gib": peak,
+            "final_loss": {k: float(v) for k, v in m.items()}}, \
+        (state, step, batch)
+
+
+def _serving_timers(device, workdir, sup):
+    """(b) measure_fp_time / measure_fp_bp_time of the U-Net at bs
+    SUP_BS, and trace() around two supervised steps: the Chrome trace must
+    hold CUDA kernel events."""
+    import torch
+    import torch.nn.functional as F
+    from arco_torch.utils.profiling import (measure_fp_bp_time,
+                                            measure_fp_time, trace)
+    state, step, batch = sup
+    model, x = state.model, batch["image"]
+    model.eval()
+    fp = measure_fp_time(lambda v: model(v), x, n=10, warmup=3)
+    model.train()
+    fp_bp = measure_fp_bp_time(
+        lambda m, v: F.cross_entropy(m(v)[0].float(), batch["label"].long()),
+        model, x, n=10, warmup=3)
+    log_dir = workdir / "trace"
+    with trace(str(log_dir)):
+        for _ in range(2):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    files = list(log_dir.glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"trace: files {files}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        raise AssertionError("trace: no CUDA kernel events")
+    start = min(e["ts"] for e in kernels)
+    end = max(e["ts"] + e.get("dur", 0) for e in kernels)
+    busy = sum(e.get("dur", 0) for e in kernels)
+    out = {"fp_ms": fp * 1e3, "fp_bp_ms": fp_bp * 1e3,
+           "trace_kernel_events": len(kernels),
+           "trace_kernel_us": busy, "trace_span_us": end - start}
+    _log(f"U-Net {SUP_HW}^2 bs {SUP_BS}: forward {out['fp_ms']:.3f} ms, "
+         f"forward + backward {out['fp_bp_ms']:.3f} ms (CUDA events); "
+         f"trace of 2 steps: {len(kernels)} kernel events, "
+         f"{busy / 1e3:.2f} ms of kernels over a "
+         f"{out['trace_span_us'] / 1e3:.2f} ms span")
+    return out
+
+
+def _serving_segmenters(device, workdir):
+    """(c) Segmenter from phase 6's iter_6 on an in-memory volume, equal to
+    eval/slice2d's path; (e) Segmenter3D from phase 8d's iter_6 on an
+    LA-sized volume, equal to the sliding window called directly."""
+    import numpy as np
+    import torch
+    from arco_torch.data.synthetic import la_volume, make_volume
+    from arco_torch.eval import sliding_window
+    from arco_torch.eval.slice2d import model_predictor, \
+        test_single_volume_2d
+    from arco_torch.eval.sliding_window_device import \
+        test_single_case_3d_device
+    from arco_torch.inference import Segmenter, Segmenter3D
+    from arco_torch.models import net_factory
+    from arco_torch.train import checkpoint as ckpt
+    snap = str(workdir / "model" / "Synapse/smoke_1_labeledfinal" / "unet")
+    image, _ = make_volume(np.random.RandomState(3), (224, 240), 4,
+                           SERVE_DEPTH)
+    seg = Segmenter.from_snapshot(snap, iteration=6, device=device)
+    seg.predict_volume(image[:2])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = seg.predict_volume(image)
+    seg_s = time.perf_counter() - t0
+    model = net_factory("unet", in_chns=1, class_num=4).to(device)
+    model.load_state_dict(ckpt.load_model_params(snap, 6))
+    _, want = test_single_volume_2d(image, np.zeros(image.shape, np.int64),
+                                    model_predictor(model, device), 4)
+    if pred.shape != image.shape or not np.array_equal(pred, want):
+        raise AssertionError("Segmenter differs from eval/slice2d's path")
+
+    snap3 = str(workdir / "model3d" /
+                f"LA/smoke_{CLI3D_LABELED}_labeledfinal" / "vnet")
+    vol, _ = la_volume(np.random.RandomState(4), LA_CASE)
+    seg3 = Segmenter3D.from_snapshot(snap3, iteration=6, device=device,
+                                     patch_size=PATCH_3D)
+    seg3.predict_volume(vol)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred3 = seg3.predict_volume(vol)
+    seg3_s = time.perf_counter() - t0
+    want3, _ = test_single_case_3d_device(
+        sliding_window.model_predictor(seg3.model, device), vol, 18, 4,
+        PATCH_3D, 2, device=device)
+    if pred3.shape != vol.shape or not np.array_equal(pred3, want3):
+        raise AssertionError("Segmenter3D differs from the sliding window")
+    _log(f"Segmenter (iter_6, {SERVE_DEPTH}x224x240 in-memory volume): "
+         f"{seg_s:.3f} s a case, labels equal to eval/slice2d's; "
+         f"Segmenter3D (iter_6, {LA_CASE}): {seg3_s:.3f} s a case, labels "
+         f"equal to the sliding window's, foreground "
+         f"{float(pred3.mean()):.4f}")
+    return {"segmenter_s": seg_s, "segmenter3d_s": seg3_s}, seg3
+
+
+def _serving_synapse(device, workdir):
+    """(d) test_synapse on in-memory volumes against an 8-class U-Net
+    checkpoint: its JSON line finite and each metric in range."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from arco_torch.cli import test_synapse
+    from arco_torch.data.datasets import InMemoryVolumes
+    from arco_torch.data.synthetic import make_volume
+    from arco_torch.models import net_factory
+    from arco_torch.train import checkpoint as ckpt
+    torch.manual_seed(5)
+    model = net_factory("unet", in_chns=1, class_num=SYN_CLASSES)
+    model_dir = workdir / "model_synapse"
+    ckpt._save(ckpt._path(str(model_dir / "Synapse/serve_5_labeledfinal" /
+                              "unet"), 3),
+               {"step": 3, "model": model.state_dict()})
+    rng = np.random.RandomState(6)
+    vols = InMemoryVolumes([make_volume(rng, (240, 240), SYN_CLASSES,
+                                        SERVE_DEPTH) for _ in range(2)])
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        test_synapse.main(["--exp", "Synapse/serve", "--snapshot_dir",
+                           str(model_dir)], dataset=vols)
+    secs = time.perf_counter() - t0
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    _log(f"test_synapse (8 classes, 2 in-memory volumes) in {secs:.2f} s: "
+         f"{json.dumps(line)}")
+    ok = line["iteration"] == 3 and all(
+        math.isfinite(line[k]) for k in ("mean_dice", "mean_jc",
+                                         "mean_hd95", "mean_asd")) \
+        and 0 <= line["mean_dice"] <= 1 and 0 <= line["mean_jc"] <= 1 \
+        and line["mean_hd95"] >= 0 and line["mean_asd"] >= 0
+    if not ok:
+        raise AssertionError(f"test_synapse gave {line}")
+    return {"test_synapse": line, "test_synapse_s": secs}
+
+
+# the interior scores of the sharded and unsharded forwards differed by up
+# to 7.66e-5 on the H100 (cuDNN picks other algorithms for the two
+# depths); each run also measures what a crop off by one slab would give
+# and requires it to exceed this bound
+SHARD_SCORE_TOL = 1e-3
+
+
+def _serving_sharded(device, workdir, seg3):
+    """(f) predict_volume_sharded over a one-rank NCCL process group,
+    against the unsharded whole-volume forward as
+    tests/test_inference_sharded.py:24-41 holds it: the input's shape,
+    int32, >= 97% agreement, and away from the depth edges the same
+    scores. On the card the two forwards see inputs of other depths (176
+    and 144), for which cuDNN may pick other algorithms, so the scores are
+    held at SHARD_SCORE_TOL and a label may differ only where the
+    unsharded forward's two best scores lie within 2 * SHARD_SCORE_TOL.
+    At one rank no halo is exchanged, so this holds the padding and the
+    crop; the scores of a crop off by one slab (the unsharded forward
+    shifted one slab in depth) must lie beyond SHARD_SCORE_TOL, so the
+    bound would see that fault."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from arco_torch.data.synthetic import la_volume
+    from arco_torch.parallel import create_mesh
+    from arco_torch.parallel.spatial import sharded_volume_forward
+    vol, _ = la_volume(np.random.RandomState(7), LA_CASE)
+    d, h, w = vol.shape
+    # predict_volume_sharded's padding at one rank: every axis to the
+    # lattice of 16, and its halo of 16
+    x = torch.from_numpy(np.pad(vol, ((0, -d % 16), (0, -h % 16),
+                                      (0, -w % 16))))[None, None]
+    dist.init_process_group("nccl", init_method=f"file://{workdir}/nccl",
+                            rank=0, world_size=1)
+    try:
+        mesh = create_mesh()
+        seg3.predict_volume_sharded(vol, mesh=mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred = seg3.predict_volume_sharded(vol, mesh=mesh)
+        secs = time.perf_counter() - t0
+        with torch.no_grad():
+            got_p = sharded_volume_forward(seg3._probs, mesh, halo=16,
+                                           lattice=16)(x)
+    finally:
+        dist.destroy_process_group()
+    with torch.no_grad():
+        want_p = seg3._probs(x.to(device))
+    inner = (slice(None), slice(None), slice(24, d - 24), slice(0, h),
+             slice(0, w))
+    score_err = (got_p[inner] - want_p[inner]).abs().max().item()
+    shifted = (slice(None), slice(None), slice(25, d - 23), slice(0, h),
+               slice(0, w))
+    crop_fault_err = (want_p[shifted] - want_p[inner]).abs().max().item()
+    top2 = want_p[0, :, :d, :h, :w].topk(2, dim=0).values
+    margin = (top2[0] - top2[1]).cpu().numpy()
+    want = want_p.argmax(1)[0, :d, :h, :w].cpu().numpy()
+    agree = float((pred == want).mean())
+    flips = pred[24:d - 24] != want[24:d - 24]
+    worst = float(margin[24:d - 24][flips].max()) if flips.any() else 0.0
+    _log(f"predict_volume_sharded (1 NCCL rank, {LA_CASE}, halo 16): "
+         f"{secs:.3f} s, agreement with the unsharded forward {agree:.6f}; "
+         f"in depth [24, {d - 24}): scores within {score_err:.2e}, "
+         f"{int(flips.sum())} labels differ, the widest of their margins "
+         f"{worst:.2e}; a crop off by one slab would be "
+         f"{crop_fault_err:.2e} off")
+    if pred.shape != vol.shape or pred.dtype != np.int32 or agree < 0.97 \
+            or score_err > SHARD_SCORE_TOL or worst > 2 * SHARD_SCORE_TOL:
+        raise AssertionError("sharded forward differs from the unsharded")
+    if not crop_fault_err > SHARD_SCORE_TOL:
+        raise AssertionError(f"a crop off by one slab moves the scores by "
+                             f"{crop_fault_err}, within SHARD_SCORE_TOL: "
+                             f"the check would not see it")
+    return {"sharded_s": secs, "sharded_agreement": agree,
+            "sharded_score_err": score_err,
+            "sharded_crop_fault_err": crop_fault_err,
+            "sharded_interior_flips": int(flips.sum())}
+
+
+def _serving_export(device, workdir):
+    """(g) export_model of phase 6's iter_6 on the card (dynamic batch,
+    argmax), served at batch 1, 3 and 8 against the eager model; a softmax
+    export; a CPU-traced artifact moved to the card; artifact vs eager ms
+    at bs 8."""
+    import numpy as np
+    import torch
+    import torch.export.passes
+    from arco_torch.cli import export_model
+    from arco_torch.export import (export_predictor, load_predictor,
+                                   make_predict_fn, save_predictor)
+    from arco_torch.models import net_factory
+    from arco_torch.train import checkpoint as ckpt
+    _log(f"torch {torch.__version__}: torch.export.passes has "
+         f"move_to_device_pass: "
+         f"{hasattr(torch.export.passes, 'move_to_device_pass')}")
+    model_dir = str(workdir / "model")
+    path = str(workdir / "unet_dyn.pt2")
+    export_model.main(["--exp", "Synapse/smoke", "--labeled_num", "1",
+                       "--snapshot_dir", model_dir, "--iteration", "6",
+                       "--batch", "dynamic", "--output", "argmax",
+                       "--device", "cuda", "--out", path])
+    model = net_factory("unet", in_chns=1, class_num=4)
+    model.load_state_dict(ckpt.load_model_params(
+        str(Path(model_dir) / "Synapse/smoke_1_labeledfinal" / "unet"), 6))
+    model = model.to(device)
+    eager = make_predict_fn(model)
+    predict = load_predictor(path)
+    gen = torch.Generator().manual_seed(8)
+    xs = {b: torch.rand((b, 1, 256, 256), generator=gen).to(device)
+          for b in (1, 3, 8)}
+    for b, x in xs.items():
+        if not torch.equal(predict(x), eager(x)):
+            raise AssertionError(f"export: artifact differs at batch {b}")
+    soft_path = str(workdir / "unet_soft.pt2")
+    save_predictor(soft_path, export_predictor(model, (2, 1, 256, 256),
+                                               output="softmax",
+                                               batch="dynamic",
+                                               device=device))
+    soft_err = (load_predictor(soft_path)(xs[3])
+                - make_predict_fn(model, "softmax")(xs[3])).abs().max().item()
+    cpu_path = str(workdir / "unet_cpu.pt2")
+    save_predictor(cpu_path, export_predictor(model, (2, 1, 256, 256),
+                                              batch="dynamic", device="cpu"))
+    moved = load_predictor(cpu_path, device=device)
+    moved_equal = all(torch.equal(moved(x), eager(x)) for x in xs.values())
+    if soft_err > 1e-5 or not moved_equal:
+        raise AssertionError(f"export: softmax err {soft_err}, moved "
+                             f"artifact equal {moved_equal}")
+    art_ms = _time_ms(lambda: predict(xs[8]), 20)
+    eager_ms = _time_ms(lambda: eager(xs[8]), 20)
+    size = os.path.getsize(path) / 1e6
+    _log(f"export: dynamic argmax artifact ({size:.1f} MB) equal to the "
+         f"eager model at batch 1, 3, 8; softmax within {soft_err:.2e}; the "
+         f"CPU-traced artifact on the card equal; bs 8: artifact "
+         f"{art_ms:.3f} ms, eager {eager_ms:.3f} ms")
+    return {"artifact_ms_bs8": art_ms, "eager_ms_bs8": eager_ms,
+            "softmax_err": soft_err, "artifact_mb": size}
+
+
+def _serving_repro():
+    """(h) repro --validate prints ok for every recipe."""
+    import contextlib
+    import io
+    from arco_torch import repro
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        repro.main(["--validate"])
+    lines = buf.getvalue().strip().splitlines()
+    if len(lines) != len(repro.RECIPES) or not all(": ok (" in line
+                                                    for line in lines):
+        raise AssertionError(f"repro --validate: {lines}")
+    _log(f"repro --validate: {len(lines)} recipes ok")
+    return len(lines)
+
+
+def phase_serving(device, workdir):
+    """Phase 14, the serving surface: (a) the supervised step card vs CPU
+    and at full width through step_timer; (b) the timers and trace();
+    (c) Segmenter; (d) test_synapse; (e) Segmenter3D; (f) the sharded
+    whole-volume forward on one NCCL rank; (g) export_model and the
+    artifacts; (h) repro --validate. No kernel is on its path: every
+    launch count stays 0."""
+    import torch
+    from arco_torch.kernels import launch_counts, reset_launch_counts
+    t_start = time.perf_counter()
+    reset_launch_counts()
+    supervised, sup = _serving_supervised(device)
+    out = {"supervised": supervised,
+           "timers": _serving_timers(device, workdir, sup)}
+    segs, seg3 = _serving_segmenters(device, workdir)
+    out.update(segs)
+    out.update(_serving_synapse(device, workdir))
+    out.update(_serving_sharded(device, workdir, seg3))
+    out["export"] = _serving_export(device, workdir)
+    out["recipes_ok"] = _serving_repro()
+    torch.cuda.synchronize()
+    if any(launch_counts().values()):
+        raise AssertionError(f"phase 14 launched kernels: {launch_counts()}")
+    out["s"] = time.perf_counter() - t_start
+    _log(f"phase 14 (serving) in {out['s']:.1f} s")
+    return out
+
+
 def main():
     try:
         import torch
@@ -2533,6 +2950,7 @@ def main():
         rest = phase_rest(device, workdir, root, vols)
         natural_counts, natural = phase_natural(device, workdir)
         pretrained = phase_pretrained(device, workdir, root)
+        serving = phase_serving(device, workdir)
     for k in kernels:
         name = k["name"]
         k["launches"] = counts[name]
@@ -2550,7 +2968,7 @@ def main():
                       "unet3d": unet3d, "zoo": zoo, "rest": rest,
                       "natural": {k: v for k, v in natural.items()
                                   if k != "kernels"},
-                      "pretrained": pretrained}))
+                      "pretrained": pretrained, "serving": serving}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

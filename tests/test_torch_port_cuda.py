@@ -2,8 +2,10 @@
 versions (also at the 3D path's shapes), the GPU slice and volume banks
 against the host pipeline, the strong augmentations against the CPU, a
 small pretrain step against the CPU, the stage-2 step with ``remat``
-against the step without it, and the 3D pretrain's pooled patch grid and
-the 3-D U-Nets' forwards against the CPU.
+against the step without it, the 3D pretrain's pooled patch grid and
+the 3-D U-Nets' forwards against the CPU, and the serving surface: an
+export round trip on the card, a one-rank NCCL sharded forward and
+``Segmenter`` on the card against the CPU.
 
 Every test here needs a CUDA GPU and skips without one. This file imports
 nothing of JAX, so it also runs where JAX is not installed:
@@ -492,3 +494,98 @@ def test_zoo_forward_on_the_card_matches_the_cpu(cuda, key):
         scale = w.abs().max().item()
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4,
                                    atol=1e-4 + 1e-4 * scale)
+
+
+# ------------------------------------------------- the serving surface
+
+def _seeded_unet():
+    torch.manual_seed(0)
+    return net_factory("unet", in_chns=1, class_num=4).eval()
+
+
+@pytest.mark.cuda
+def test_export_roundtrip_on_the_card(cuda, tmp_path):
+    """A batch-dynamic argmax artifact traced on the card, saved and loaded
+    with load_predictor, equals the eager model on the card at batch 1 and
+    3; an artifact traced on the CPU and loaded onto the card
+    (move_to_device_pass) equals it too."""
+    from arco_torch.export import (export_predictor, load_predictor,
+                                   make_predict_fn, save_predictor)
+    torch.backends.cudnn.allow_tf32 = False
+    model = _seeded_unet().to(cuda)
+    eager = make_predict_fn(model)
+    paths = {}
+    for dev in ("cuda", "cpu"):
+        paths[dev] = str(tmp_path / f"unet_{dev}.pt2")
+        save_predictor(paths[dev], export_predictor(
+            model, (1, 1, 64, 64), batch="dynamic", device=dev))
+    on_card = load_predictor(paths["cuda"])
+    moved = load_predictor(paths["cpu"], device="cuda")
+    for b in (1, 3):
+        x = torch.rand((b, 1, 64, 64), generator=torch.Generator()
+                       .manual_seed(b)).to(cuda)
+        want = eager(x)
+        assert torch.equal(on_card(x), want)
+        assert torch.equal(moved(x), want)
+
+
+@pytest.mark.cuda
+def test_sharded_forward_one_nccl_rank(cuda, tmp_path):
+    """predict_volume_sharded over a one-rank NCCL process group against the
+    unsharded whole-volume forward (tests/test_inference_sharded.py:24-41):
+    the input's shape, int32, >= 97% agreement; in depth [24, 40) the
+    scores within 1e-3 and the labels equal but where the unsharded
+    forward's two scores lie within 2e-3 (chip_smoke.py phase 14f: the two
+    forwards see inputs of other depths, for which cuDNN may pick other
+    algorithms; there the scores differed by up to 7.66e-5 and one label
+    in 1.8M flipped, at a margin of 2.3e-6)."""
+    import torch.distributed as dist
+    from arco_torch.inference import Segmenter3D
+    from arco_torch.models import net_factory_3d
+    from arco_torch.parallel import create_mesh
+    from arco_torch.parallel.spatial import sharded_volume_forward
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(0)
+    seg = Segmenter3D(net_factory_3d("vnet", in_chns=1, class_num=2),
+                      device=cuda)
+    vol = np.random.RandomState(0).randn(60, 32, 32).astype(np.float32)
+    x = torch.from_numpy(np.pad(vol, ((0, 4), (0, 0), (0, 0))))[None, None]
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = create_mesh()
+        pred = seg.predict_volume_sharded(vol, mesh=mesh)
+        with torch.no_grad():
+            got_p = sharded_volume_forward(seg._probs, mesh, halo=16,
+                                           lattice=16)(x)
+    finally:
+        dist.destroy_process_group()
+    with torch.no_grad():
+        want_p = seg._probs(x)
+    want = want_p.argmax(1)[0, :60].cpu().numpy()
+    assert pred.shape == vol.shape and pred.dtype == np.int32
+    assert (pred == want).mean() > 0.97
+    torch.testing.assert_close(got_p[:, :, 24:40], want_p[:, :, 24:40],
+                               atol=1e-3, rtol=0)
+    margin = (want_p[0, 1] - want_p[0, 0]).abs()[24:40].cpu().numpy()
+    flips = pred[24:40] != want[24:40]
+    assert (margin[flips] <= 2e-3).all()
+
+
+@pytest.mark.cuda
+def test_segmenter_on_the_card_matches_the_cpu(cuda):
+    """Segmenter.predict_volume on the card against the CPU (f32, TF32
+    off): cuDNN's and the CPU's convolutions sum in other orders, so the
+    labels are held to 99.9% agreement (a flip needs a near-tie of two
+    logits)."""
+    import copy
+    from arco_torch.inference import Segmenter
+    torch.backends.cudnn.allow_tf32 = False
+    model = _seeded_unet()
+    vol = np.random.RandomState(1).rand(4, 80, 72).astype(np.float32)
+    want = Segmenter(copy.deepcopy(model), input_size=(64, 64),
+                     device="cpu").predict_volume(vol)
+    got = Segmenter(model, input_size=(64, 64),
+                    device=cuda).predict_volume(vol)
+    assert got.shape == vol.shape
+    assert (got == want).mean() >= 0.999

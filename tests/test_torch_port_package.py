@@ -81,3 +81,24 @@ def test_pretrain_entry_points_raise_without_a_gpu():
         pretrain.make_pretrain_step(ISDConfig(), 1, 4, 10)
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         pretrain_2d.main(["--root_path", "/nonexistent"])
+
+
+def test_serving_entry_points_raise_without_a_gpu(tmp_path):
+    """The serving surface takes the card unless given device="cpu" /
+    --device cpu; the CLIs refuse before they read a checkpoint."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    from arco_torch.cli import export_model, test_synapse
+    from arco_torch.export import export_predictor
+    from arco_torch.inference import Segmenter, Segmenter3D
+    from arco_torch.models import net_factory_3d
+    from arco_torch.train.supervised import PolySGD, init_supervised_state
+    model = net_factory("unet", class_num=4)
+    for make in (lambda: Segmenter(model),
+                 lambda: Segmenter3D(net_factory_3d("vnet")),
+                 lambda: init_supervised_state(model, PolySGD(0.01, 10)),
+                 lambda: export_predictor(model, (1, 1, 32, 32)),
+                 lambda: test_synapse.main(["--root_path", "/nonexistent"]),
+                 lambda: export_model.main(["--out", str(tmp_path / "x")])):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            make()
