@@ -85,9 +85,13 @@ def generate_class_mask(scores, pseudo_labels, num_classes: int):
 
 def generate_unsup_data(data, target, logits, mode: str = "cutmix",
                         num_classes: int = 4, boxes=None, scores=None,
-                        generator=None):
+                        generator=None, shard=None):
     """Batch mixing (augment.py:284-313). cutout zeroes the rectangle and
-    voids (-1) its labels; cutmix/classmix paste from sample (i+1) % B."""
+    voids (-1) its labels; cutmix/classmix paste from sample (i+1) % B.
+    ``shard`` (an ``ops.collectives.BatchShard``): the inputs are this
+    rank's unlabeled samples of a batch split over its group, and sample
+    i + 1 is the global batch's: the last local sample pastes from the
+    next rank's first."""
     b = data.shape[0]
     spatial = tuple(data.shape[2:])
     if mode in ("cutout", "cutmix"):
@@ -108,7 +112,12 @@ def generate_unsup_data(data, target, logits, mode: str = "cutmix",
     else:
         masks = torch.ones_like(logits)
 
-    rolled = lambda x: torch.roll(x, -1, dims=0)
+    if shard is None:
+        rolled = lambda x: torch.roll(x, -1, dims=0)
+    else:
+        def rolled(x):
+            nxt = shard.gather(x[:1])[(shard.rank + 1) % shard.world]
+            return torch.cat([x[1:], nxt[None]], dim=0)
     m = masks[:, None]
     new_data = data * m + rolled(data) * (1 - m)
     new_target = target * masks + rolled(target) * (1 - masks)

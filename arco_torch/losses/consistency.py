@@ -7,15 +7,18 @@ import torch
 
 from arco_torch.kernels.pool_sims import pool_similarities
 from arco_torch.losses.supervised import cross_entropy
+from arco_torch.ops.collectives import all_reduce_sum
 from arco_torch.ops.normalize import feature_axes, l2_normalize
 
 
 def compute_unsupervised_loss(predict, target, logits, strong_threshold,
-                              conf_mask: bool = False):
+                              conf_mask: bool = False, group=None):
     """Confidence-weighted CE on pseudo-labels (train_arco_2d.py:482-489).
 
     predict [B, ..., K] logits; target [B, ...] int (-1 = void); logits
-    [B, ...] pseudo-label confidences."""
+    [B, ...] pseudo-label confidences. ``group``: a process group whose
+    ranks hold the rest of the batch; the numerator and the count of
+    positive pixels are then summed over all of it."""
     b = predict.shape[0]
     valid_mask = (target >= 0).float()
     strong = (logits.reshape(b, -1) >= strong_threshold).sum(-1)
@@ -25,17 +28,23 @@ def compute_unsupervised_loss(predict, target, logits, strong_threshold,
         loss = loss * (logits >= strong_threshold).to(loss.dtype)
     w = weighting.reshape((b,) + (1,) * (loss.ndim - 1))
     pos = (loss > 0).float()
-    return (w * loss * pos).sum() / pos.sum().clamp(min=1)
+    num, count = (w * loss * pos).sum(), pos.sum()
+    if group is not None:
+        num, count = all_reduce_sum(torch.stack([num, count]), group)
+    return num / count.clamp(min=1)
 
 
-def revisiting_loss(random_pool, rep_u, rep_u_teacher, topk: int = 5):
+def revisiting_loss(random_pool, rep_u, rep_u_teacher, topk: int = 5,
+                    group=None):
     """Nearest-neighbour 'revisiting' loss (train_arco_2d.py:126-136).
 
     random_pool [K, *feat] with rows L2-normalized over the feature dims;
     rep_u / rep_u_teacher [B, *feat] in the same layout. The student picks
     its topk nearest pool rows (d = 2 - 2<a, b>); the loss is the teacher's
     mean distance to those rows. Gradient-free by reference semantics. The
-    [2B, K] similarities come from the pool_sims kernel on CUDA."""
+    [2B, K] similarities come from the pool_sims kernel on CUDA. With a
+    ``group`` each rank holds B of the unlabeled samples, and the mean runs
+    over every rank's."""
     b = rep_u.shape[0]
     dims = feature_axes(rep_u)
     with torch.no_grad():
@@ -50,13 +59,16 @@ def revisiting_loss(random_pool, rep_u, rep_u_teacher, topk: int = 5):
     dist_q = 2.0 - 2.0 * sims[b:]
     nn_index = torch.topk(-dist_t, topk, dim=1).indices
     nn_dist_q = torch.gather(dist_q, 1, nn_index)
-    return (nn_dist_q.sum(1) / topk).mean()
+    if group is None:
+        return (nn_dist_q.sum(1) / topk).mean()
+    return _global_mean(nn_dist_q.sum(1) / topk, group)
 
 
-def equivariance_loss(pred_tps, pred_tps_org, mask_tps):
+def equivariance_loss(pred_tps, pred_tps_org, mask_tps, group=None):
     """Masked KL between predictions on TPS-warped images and TPS-warped
     predictions (train_arco_2d.py:417-423). [B, ..., K] logits and a
-    [B, ..., 1] mask."""
+    [B, ..., 1] mask. With a ``group`` the per-sample ratios are averaged
+    over every rank's samples."""
     logp = torch.log_softmax(pred_tps.float(), dim=-1)
     q = torch.softmax(pred_tps_org.float(), dim=-1)
     logq = torch.log(q.clamp(1e-30, 1.0))
@@ -64,4 +76,14 @@ def equivariance_loss(pred_tps, pred_tps_org, mask_tps):
     b = kl.shape[0]
     num = kl.reshape(b, -1).sum(1)
     den = mask_tps.reshape(b, -1).float().sum(1) + 1e-7
-    return (num / den).mean()
+    if group is None:
+        return (num / den).mean()
+    return _global_mean(num / den, group)
+
+
+def _global_mean(per_sample, group):
+    """The mean of a [b] vector over every rank's samples."""
+    total, count = all_reduce_sum(torch.stack([
+        per_sample.sum(), per_sample.new_full((), per_sample.shape[0])]),
+        group)
+    return total / count

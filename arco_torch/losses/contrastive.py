@@ -110,14 +110,23 @@ def compute_contra_memobank_loss(
         num_queries: int = 256, num_negatives: int = 512, temp: float = 0.5,
         low_rank: int = 3, high_rank: int = 20,
         current_class_threshold: float = 0.3, enqueue_per_class: int = 256,
-        draws=None, generator=None):
+        draws=None, generator=None, shard=None):
     """Returns (memobank, reco_loss); the bank is updated in place.
 
     ``draws`` may hold the sampler uniforms ``enq`` [K, enqueue_per_class]
     (always 'smc'), ``anchor`` [K, num_queries] and ``neg``
     [K, num_queries * num_negatives] (half as many for 'asmc').
     The InfoNCE term goes through the fused kernel pair
-    (``kernels.infonce``)."""
+    (``kernels.infonce``).
+
+    ``shard`` (an ``ops.collectives.BatchShard``): the inputs are this
+    rank's labeled and unlabeled samples, and the loss is the global
+    batch's, every rank's bank the one process's. The pixel masks are
+    gathered to every rank, so every rank samples the same flat indices
+    of the global batch; the prototypes are all-reduced partial sums; the
+    sampled keys and anchors are read by the rank that owns each row and
+    all-reduced (``BatchShard.take_rows``). Every rank then runs the
+    InfoNCE pair on the same global anchors."""
     draws = draws or {}
     num_classes = label_onehot_all.shape[-1]
     feat = rep.shape[-1]
@@ -138,8 +147,18 @@ def compute_contra_memobank_loss(
 
     # all-class prototypes in one pass over the teacher reps, f32 sums
     low_valid_flat = low_valid_all.reshape(-1, num_classes)
-    n_low_all = low_valid_flat.to(torch.int32).sum(0)                 # [K]
     protos_all = low_valid_flat.float().t() @ rep_t_flat.float()
+    if shard is None:
+        take = lambda flat, idx: flat[idx]
+    else:
+        per_sample = rep_flat.shape[0] // b
+        take = lambda flat, idx: shard.take_rows(flat, idx, per_sample)
+        protos_all = shard.sum(protos_all)
+        low_valid_flat = shard.gather_lu(low_valid_all).reshape(
+            -1, num_classes)
+        anchor_mask = shard.gather_lu(anchor_mask)
+        negative_mask = shard.gather_lu(negative_mask)
+    n_low_all = low_valid_flat.to(torch.int32).sum(0)                 # [K]
     protos_all = protos_all / n_low_all.clamp(min=1)[:, None]
 
     # enqueue a stratified sample of each class's negatives, normalized
@@ -147,14 +166,14 @@ def compute_contra_memobank_loss(
     enq_idx, n_neg_pix = sampling.sample_from_mask(
         neg_flat, enqueue_per_class, func="smc", u=draws.get("enq"),
         generator=generator)
-    keys = _l2_normalize(rep_t_flat[enq_idx])                  # [K, enq, C]
+    keys = _l2_normalize(take(rep_t_flat, enq_idx))            # [K, enq, C]
     _bank_enqueue_all(memobank, keys, enable=n_neg_pix > 0)
 
     anchor_flat = anchor_mask.reshape(-1, num_classes).t()
     a_idx, n_anchor = sampling.sample_from_mask(
         anchor_flat, num_queries, func=func, u=draws.get("anchor"),
         generator=generator)
-    anchor_feat = rep_flat[a_idx]                              # [K, Q, C]
+    anchor_feat = take(rep_flat, a_idx)                        # [K, Q, C]
 
     bank_count = memobank.count
     neg_ranks = sampling.draw_indices(

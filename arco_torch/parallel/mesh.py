@@ -28,10 +28,12 @@ import torch.distributed as dist
 
 
 def create_mesh(shape: Optional[Sequence[int]] = None,
-                axis_names: Sequence[str] = ("data",)):
+                axis_names: Sequence[str] = ("data",),
+                device_type: Optional[str] = None):
     """A DeviceMesh of ``shape`` over the initialised process group's
-    ranks (-1 takes the ranks left over, as in JAX), on "cuda" under NCCL
-    and on "cpu" otherwise."""
+    ranks (-1 takes the ranks left over, as in JAX), on ``device_type``:
+    by default "cuda" under NCCL and "cpu" otherwise; "cuda" under gloo
+    puts gloo ranks on the cards' tensors."""
     if not dist.is_initialized():
         raise RuntimeError("create_mesh needs an initialised process group "
                            "(torch.distributed.init_process_group)")
@@ -41,7 +43,8 @@ def create_mesh(shape: Optional[Sequence[int]] = None,
         shape = (n,)
     known = math.prod(int(s) for s in shape if s != -1) or 1
     shape = tuple(int(s) if s != -1 else n // known for s in shape)
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    if device_type is None:
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return init_device_mesh(device_type, shape,
                             mesh_dim_names=tuple(axis_names))
 
@@ -53,16 +56,32 @@ def mesh_device(mesh) -> torch.device:
     return torch.device(mesh.device_type)
 
 
-def axis_rank(mesh, axis: str = "data"):
-    """(this rank's index along ``axis``, the axis's size, its group)."""
-    group = mesh.get_group(axis)
+def axis_rank(mesh, axis="data"):
+    """(this rank's index along ``axis``, the axis's size, its group).
+    ``axis`` may also be a tuple of every axis of ``mesh``, in order: the
+    batch sharded over the whole mesh, row-major, as JAX's
+    ``P(("data", "space"))`` shards it; such a mesh must span every rank
+    of the process group."""
+    if isinstance(axis, str):
+        group = mesh.get_group(axis)
+    elif tuple(axis) != tuple(mesh.mesh_dim_names):
+        raise ValueError(f"axes {tuple(axis)} are not the mesh's "
+                         f"{tuple(mesh.mesh_dim_names)}")
+    elif len(axis) == 1:
+        group = mesh.get_group(axis[0])
+    elif mesh.mesh.flatten().tolist() != list(range(dist.get_world_size())):
+        raise ValueError("a batch over several mesh axes needs a mesh over "
+                         "every rank, in rank order")
+    else:
+        group = dist.group.WORLD
     return dist.get_rank(group), dist.get_world_size(group), group
 
 
-def shard_batch(batch, mesh, axis: str = "data"):
+def shard_batch(batch, mesh, axis="data"):
     """This rank's contiguous slice of every [B, ...] tensor (or array) of
     a dict, list or tuple, on this rank's device: what JAX's
-    ``NamedSharding(P(axis))`` places on each device."""
+    ``NamedSharding(P(axis))`` places on each device (``axis`` as in
+    ``axis_rank``)."""
     idx, n, _ = axis_rank(mesh, axis)
     device = mesh_device(mesh)
 
@@ -83,7 +102,7 @@ def shard_batch(batch, mesh, axis: str = "data"):
     return walk(batch)
 
 
-def replicate(module: torch.nn.Module, mesh, axis: str = "data"):
+def replicate(module: torch.nn.Module, mesh, axis="data"):
     """Broadcast ``module``'s parameters and buffers from the axis's first
     rank, in place; returns the module."""
     _, _, group = axis_rank(mesh, axis)

@@ -9,8 +9,9 @@ see across the shard boundaries.
 
 - ``_halo_pass``: each rank sends its leading and trailing ``halo`` slabs
   to its neighbours and receives theirs, as one ``batch_isend_irecv`` of
-  point-to-point ops, so no rank blocks on an unmatched send. The global
-  edges extend with zeros, so the first SAME conv sees what the unsharded
+  point-to-point ops, so no rank blocks on an unmatched send (gloo ranks
+  on a card stage the slabs through the host). The global edges extend
+  with zeros, so the first SAME conv sees what the unsharded
   forward sees there.
 - ``sharded_volume_forward`` wraps a forward: cut this rank's slab, extend
   it by the halos, run the forward on [local + 2*halo], crop ``halo`` from
@@ -50,6 +51,10 @@ def _halo_pass(x: torch.Tensor, group, halo: int, spatial_axis: int):
     size = x.shape[spatial_axis]
     lo_slab = x.narrow(spatial_axis, 0, halo).contiguous()
     hi_slab = x.narrow(spatial_axis, size - halo, halo).contiguous()
+    # gloo sends no CUDA tensor: its ranks on a card trade through the host
+    host = x.is_cuda and dist.get_backend(group) == "gloo"
+    if host:
+        lo_slab, hi_slab = lo_slab.cpu(), hi_slab.cpu()
     left, right = torch.zeros_like(lo_slab), torch.zeros_like(hi_slab)
     ops = []
     if idx > 0:            # trade leading slabs with the left neighbour
@@ -61,6 +66,8 @@ def _halo_pass(x: torch.Tensor, group, halo: int, spatial_axis: int):
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
+    if host:
+        left, right = left.to(x.device), right.to(x.device)
     return torch.cat([left, x, right], dim=spatial_axis)
 
 

@@ -26,6 +26,27 @@ and the recompute leaves the BatchNorm running statistics alone.
 The step is rank-generic: images NCHW (2D U-Net) or NCDHW (3D V-Net,
 [B, C, X, Y, Z] in the JAX package's axis order); class maps, fused reps
 and the pool are channels-last [B, *spatial, C] in both.
+
+With a ``mesh`` the step is data-parallel: each rank is handed its shard
+of the batch and computes what one process computes over the whole batch,
+as JAX's step does under a batch sharding:
+- every random draw that the caller does not inject is taken from
+  ``state.generator`` at the global batch's shape, up front and
+  identically on every rank (``_global_draws``, which every step calls,
+  with or without a mesh), and each rank keeps its rows
+  (``_local_draws``), so the generators stay equal;
+- CutMix / ClassMix pair sample i with i + 1 of the global unlabeled
+  batch: the last local sample takes the next rank's first one;
+- the student's and teacher's BatchNorm statistics run over the global
+  batch (``sync_batch_norm``); the heads have no norm;
+- every loss term is a global mean, the entropy thresholds and the
+  memory-bank sampling run over the global batch, and the bank and random
+  pool take the global batch's keys in its order, so every rank holds the
+  one process's bank and pool.
+Every loss term reaches the all-reduced global sums through the
+differentiable ``all_reduce_sum`` (the supervised step's convention): each
+rank's loss is the global loss, its gradient ``world`` times its samples'
+share, and ``average_gradients`` divides the world size out.
 """
 
 from __future__ import annotations
@@ -39,10 +60,10 @@ import torch
 import torch.utils.checkpoint
 
 from arco_torch import resolve_device
-from arco_torch.augment.mixing import generate_unsup_data
-from arco_torch.augment.morph import adv_morph_batch
-from arco_torch.augment.photometric import batch_photometric
-from arco_torch.augment.tps import RandTPS
+from arco_torch.augment.mixing import draw_cutout_boxes, generate_unsup_data
+from arco_torch.augment.morph import adv_morph_batch, draw_morph
+from arco_torch.augment.photometric import batch_photometric, draw_photometric
+from arco_torch.augment.tps import RandTPS, draw_tps
 from arco_torch.config import OptimConfig
 from arco_torch.losses.consistency import (compute_unsupervised_loss,
                                            equivariance_loss, revisiting_loss)
@@ -51,10 +72,12 @@ from arco_torch.losses.contrastive import (MemoBank,
                                            create_memobank, descending_rank)
 from arco_torch.losses.supervised import cross_entropy, dice_loss, one_hot
 from arco_torch.models.heads import FeatureExtractor, QRepresentation
-from arco_torch.models.layers import running_stats_frozen
+from arco_torch.models.layers import running_stats_frozen, sync_batch_norm
 from arco_torch.ops import normalize
+from arco_torch.ops.collectives import BatchShard
 from arco_torch.ops.interpolate import resize_nearest
 from arco_torch.ops.ring_buffer import enqueue_fixed
+from arco_torch.parallel.mesh import average_gradients, axis_rank
 from arco_torch.train.schedule import make_optimizer, poly_lr, set_lr
 from arco_torch.utils.tree import ema_update
 
@@ -236,18 +259,32 @@ def _autocast(device, dtype):
     return torch.autocast(device.type, dtype=dtype)
 
 
-def _student_forward(model, x, masks, gen, remat: bool):
-    """model(x, masks, gen); with ``remat`` and a gradient to take, as a
-    checkpointed region whose recompute draws the same dropout masks
-    (drawn here, before it) and leaves the running statistics alone."""
+def _sync(module, group):
+    """``sync_batch_norm`` over ``group``, or nothing without one."""
+    if group is None:
+        return contextlib.nullcontext()
+    return sync_batch_norm(module, group)
+
+
+@contextlib.contextmanager
+def _recompute(model, group):
+    with running_stats_frozen(model), _sync(model, group):
+        yield
+
+
+def _student_forward(model, x, masks, gen, remat: bool, group=None):
+    """model(x, masks, gen), its BatchNorm statistics over ``group``'s
+    batch; with ``remat`` and a gradient to take, as a checkpointed region
+    whose recompute draws the same dropout masks (drawn here, before it),
+    takes the same statistics and leaves the running ones alone."""
     if not (remat and torch.is_grad_enabled()):
-        return model(x, masks, gen)
+        with _sync(model, group):
+            return model(x, masks, gen)
     if masks is None:
         masks = model.draw_dropout_masks(x.shape, gen, x.device)
     return torch.utils.checkpoint.checkpoint(
         model, x, masks, use_reentrant=False,
-        context_fn=lambda: (contextlib.nullcontext(),
-                            running_stats_frozen(model)))
+        context_fn=lambda: (_sync(model, group), _recompute(model, group)))
 
 
 def _fuse(fe, l_fmap, u_fmap):
@@ -257,10 +294,13 @@ def _fuse(fe, l_fmap, u_fmap):
 
 
 def arco_loss_fn(state: ArcoState, modules: ArcoModules, cfg, batch, aug,
-                 draws, num_classes, max_iterations):
+                 draws, num_classes, max_iterations, shard=None):
     """The differentiable part of the step; returns (loss, metrics).
-    ``aug`` carries the augmented tensors and teacher outputs."""
+    ``aug`` carries the augmented tensors and teacher outputs. ``shard``
+    (an ``ops.collectives.BatchShard``): the batch is this rank's shard,
+    and the loss and metrics are the global batch's."""
     dev = state.random_pool.device
+    group = None if shard is None else shard.group
     gen = state.generator
     dmask = draws.get("dropout", {})
     image_l, label_l = batch["image_l"], batch["label_l"]
@@ -272,12 +312,13 @@ def arco_loss_fn(state: ArcoState, modules: ArcoModules, cfg, batch, aug,
     remat = cfg.remat
     with cast():
         pred_l, _, l_fmap = _student_forward(model, image_l, dmask.get("l"),
-                                             gen, remat)
+                                             gen, remat, group)
         if getattr(cfg, "dead_forward", False):
-            with torch.no_grad():
+            with torch.no_grad(), _sync(model, group):
                 model(aug["images_cj2_l"], dmask.get("dead"), gen)
         pred_u, _, u_fmap = _student_forward(model, u_aug_data,
-                                             dmask.get("u"), gen, remat)
+                                             dmask.get("u"), gen, remat,
+                                             group)
         rep_all = state.q_representation(
             _fuse(state.feature_extractor, l_fmap, u_fmap))
     b_l = pred_l.shape[0]
@@ -287,16 +328,17 @@ def arco_loss_fn(state: ArcoState, modules: ArcoModules, cfg, batch, aug,
     zero = torch.zeros((), device=dev)
 
     loss_q = revisiting_loss(state.random_pool, rep_u, aug["rep_u_teacher"],
-                             topk=cfg.topk) if cfg.compute_revisit else zero
+                             topk=cfg.topk, group=group) \
+        if cfg.compute_revisit else zero
 
     probs_l = torch.softmax(pred_l.float(), dim=-1)
-    loss_ce = cross_entropy(pred_l, label_l)
-    loss_dice = dice_loss(probs_l, label_l, num_classes)
+    loss_ce = cross_entropy(pred_l, label_l, group=group)
+    loss_dice = dice_loss(probs_l, label_l, num_classes, group=group)
     supervised = loss_ce + loss_dice
 
     unsup = compute_unsupervised_loss(
         pred_u, u_aug_label, u_aug_logits, cfg.strong_threshold,
-        conf_mask=getattr(cfg, "unsup_conf_mask", False)) \
+        conf_mask=getattr(cfg, "unsup_conf_mask", False), group=group) \
         if cfg.compute_unsup else zero
 
     reco = zero
@@ -308,7 +350,10 @@ def arco_loss_fn(state: ArcoState, modules: ArcoModules, cfg, batch, aug,
             alpha_t = 20.0 * (1.0 - _f32(state.step, dev) / max_iterations)
             pct_fn = (masked_percentiles_histogram if cfg.fast_percentile
                       else masked_percentiles)
-            low_t, high_t = pct_fn(entropy, valid_u,
+            # the thresholds of the global unlabeled batch
+            all_entropy, all_valid = (entropy, valid_u) if shard is None \
+                else (shard.gather(entropy), shard.gather(valid_u))
+            low_t, high_t = pct_fn(all_entropy, all_valid,
                                    [alpha_t, 100.0 - alpha_t])
             low_entropy_mask = (entropy <= low_t) & valid_u
             high_entropy_mask = (entropy >= high_t) & valid_u
@@ -349,7 +394,7 @@ def arco_loss_fn(state: ArcoState, modules: ArcoModules, cfg, batch, aug,
             temp=cfg.temp, low_rank=cfg.low_rank, high_rank=cfg.high_rank,
             current_class_threshold=cfg.current_class_threshold,
             enqueue_per_class=cfg.memobank_enqueue,
-            draws=draws.get("contra"), generator=gen)
+            draws=draws.get("contra"), generator=gen, shard=shard)
 
     loss_eqv = zero
     if cfg.compute_eqv:
@@ -376,8 +421,10 @@ def arco_loss_fn(state: ArcoState, modules: ArcoModules, cfg, batch, aug,
             else torch.no_grad()
         with grad_ctx, cast():
             pred_tps, _, _ = _student_forward(model, images_tps,
-                                              dmask.get("tps"), gen, remat)
-        loss_eqv = equivariance_loss(_nhwc(pred_tps), pred_tps_org, mask_tps)
+                                              dmask.get("tps"), gen, remat,
+                                              group)
+        loss_eqv = equivariance_loss(_nhwc(pred_tps), pred_tps_org, mask_tps,
+                                     group=group)
 
     loss = (cfg.k1 * reco + cfg.k3 * unsup + supervised
             + (cfg.k2 * loss_eqv if cfg.use_eqv_loss else 0.0)
@@ -386,18 +433,127 @@ def arco_loss_fn(state: ArcoState, modules: ArcoModules, cfg, batch, aug,
                "unsup_loss": unsup, "loss_ce": loss_ce,
                "loss_dice": loss_dice, "loss_eqv": loss_eqv}
     metrics = {k: v.detach() for k, v in metrics.items()}
-    metrics["pred_l_label"] = pred_l.detach().argmax(-1).to(torch.int32)
+    pred_label = pred_l.detach().argmax(-1).to(torch.int32)
+    metrics["pred_l_label"] = pred_label if shard is None \
+        else shard.gather(pred_label)
     return loss, metrics
+
+
+def _global_draws(state: ArcoState, modules: ArcoModules, cfg, draws,
+                  l_shape, u_in_shape, u_shape, num_classes):
+    """``draws`` with every draw it lacks taken from ``state.generator`` at
+    the global batch's shapes: the step's one list of its draws, which it
+    hands to the callees (they draw lazily only for their other callers),
+    in the order in which those would draw: the teacher's pseudo-label
+    dropout, the mix boxes or scores, the photometric and AdvMorph draws,
+    the teacher's and the student's dropout, the sampler uniforms, the TPS
+    draws and the TPS forward's dropout. Shapes: the global labeled
+    images, the unlabeled ones as given and as mixed (after
+    ``output_size``). An injected dropout entry must hold every mask of
+    its forward."""
+    gen, dev = state.generator, state.random_pool.device
+    out = dict(draws)
+    dmask = dict(out.get("dropout", {}))
+
+    def masks(name, model, shape):
+        if dmask.get(name) is None:
+            dmask[name] = model.draw_dropout_masks(shape, gen, dev)
+
+    b_u, spatial = u_shape[0], tuple(u_shape[2:])
+    masks("pseudo", state.ema_model, u_in_shape)
+    if cfg.apply_aug in ("cutout", "cutmix"):
+        if out.get("mix_boxes") is None:
+            out["mix_boxes"] = draw_cutout_boxes(b_u, spatial, generator=gen,
+                                                 device=dev)
+    elif cfg.apply_aug == "classmix" and out.get("mix_scores") is None:
+        out["mix_scores"] = torch.rand((b_u, num_classes), generator=gen,
+                                       device=dev)
+    for flag, key, draw in (
+            (cfg.use_photometric, "photometric",
+             lambda: draw_photometric(b_u, gen, dev)),
+            (cfg.use_adv_morph, "morph",
+             lambda: draw_morph(b_u, (spatial[1] // 8,) * 2, gen, dev))):
+        if flag:
+            part = dict(out.get(key, {}))
+            for name in (("cj1", "cj2") if key == "photometric"
+                         else ("m1", "m2")):
+                if part.get(name) is None:
+                    part[name] = draw()
+            out[key] = part
+    masks("tl", state.ema_model, l_shape)
+    masks("tu", state.ema_model, u_shape)
+    masks("l", state.model, l_shape)
+    if getattr(cfg, "dead_forward", False):
+        masks("dead", state.model, l_shape)
+    masks("u", state.model, u_shape)
+    if cfg.compute_contrastive:
+        contra = dict(out.get("contra") or {})
+        half = 2 if cfg.func == "asmc" else 1
+        q = cfg.num_queries
+        for name, n in (("enq", cfg.memobank_enqueue), ("anchor", q // half),
+                        ("neg", q * cfg.num_negatives // half)):
+            if contra.get(name) is None:
+                contra[name] = torch.rand((num_classes, n), generator=gen,
+                                          device=dev)
+        out["contra"] = contra
+    if cfg.compute_eqv:
+        total = l_shape[0] + b_u
+        if out.get("tps") is None:
+            out["tps"] = draw_tps(total, modules.tps.sigma,
+                                  random_scale=modules.tps.random_scale,
+                                  generator=gen, device=dev)
+        masks("tps", state.model, (total,) + tuple(u_shape[1:]))
+    out["dropout"] = dmask
+    return out
+
+
+def _local_draws(draws, shard: BatchShard):
+    """This rank's rows of the global ``draws``: the unlabeled samples'
+    for the mix, the strong augmentations and the forwards of unlabeled
+    images, the labeled samples' for the labeled forwards, both (labeled
+    then unlabeled) for the TPS warp and its forward; scalars (AdvMorph's
+    ``p``, the TPS flip) and the sampler uniforms stay whole."""
+    u, lu = shard.rows_u(), shard.take_lu
+    parts = {"pseudo": u, "tu": u, "u": u, "tl": shard.rows_l(),
+             "l": shard.rows_l(), "dead": shard.rows_l(), "tps": lu}
+    cut = lambda x, rows: rows(x) if callable(rows) else x[rows]
+    out = dict(draws)
+    for key in ("mix_boxes", "mix_scores"):
+        if out.get(key) is not None:
+            out[key] = out[key][u]
+    if "photometric" in out:
+        out["photometric"] = {name: {k: v[u] for k, v in d.items()}
+                              for name, d in out["photometric"].items()}
+    if "morph" in out:
+        out["morph"] = {name: {**d, "velocity": d["velocity"][u]}
+                        for name, d in out["morph"].items()}
+    if out.get("tps") is not None:
+        out["tps"] = {k: v if k == "flip" else lu(v)
+                      for k, v in out["tps"].items()}
+    out["dropout"] = {
+        name: None if ms is None else
+        [None if m is None else cut(m, parts[name]) for m in ms]
+        for name, ms in out.get("dropout", {}).items()}
+    return out
 
 
 def make_arco_step(modules: ArcoModules, cfg, num_classes: int,
                    max_iterations: int, optim: OptimConfig = None,
-                   output_size=None, device="cuda"):
+                   output_size=None, device="cuda", mesh=None):
     """Returns step(state, batch, draws=None) -> metrics, which updates
     ``state`` in place.
 
     batch: image_l [B, C, *S], label_l [B, *S] int, image_u [B, C, *S]
     with S = (H, W) or (X, Y, Z).
+
+    mesh: a ``parallel.mesh.create_mesh`` mesh whose every axis shards the
+    batch ("data", or "data" and "space" as ``parallel.dryrun`` shards
+    it). Every rank calls the step with its shard of the batch
+    (``shard_batch(batch, mesh, mesh.mesh_dim_names)``) and a state equal
+    to every other rank's, and gets the whole batch's metrics
+    (``pred_l_label`` over the global labeled batch); the state stays
+    equal on every rank, and equal to one process's over the whole batch.
+    Injected ``draws`` are the global batch's, the same on every rank.
     draws (all optional; missing ones come from ``state.generator``):
       mix_boxes [B_u, 3] (2D) or [B_u, 5] (3D) / mix_scores [B_u, K]
                 (augment/mixing.py)
@@ -414,19 +570,36 @@ def make_arco_step(modules: ArcoModules, cfg, num_classes: int,
     """
     device = resolve_device(device)
     optim = optim or OptimConfig()
+    rank, world, group = 0, 1, None
+    if mesh is not None:
+        rank, world, group = axis_rank(mesh, tuple(mesh.mesh_dim_names))
 
     def step_fn(state: ArcoState, batch, draws=None):
         draws = draws or {}
-        dmask = draws.get("dropout", {})
         gen = state.generator
         batch = {k: v.to(device) for k, v in batch.items()}
         cast = lambda: _autocast(device, state.compute_dtype)
+        # every draw up front, at the global batch's shapes; a rank keeps
+        # its rows
+        glob = lambda x: (world * x.shape[0],) + tuple(x.shape[1:])
+        u_in = glob(batch["image_u"])
+        u_shape = u_in if output_size is None \
+            else u_in[:2] + tuple(output_size)
+        draws = _global_draws(state, modules, cfg, draws,
+                              glob(batch["image_l"]), u_in, u_shape,
+                              num_classes)
+        shard = None
+        if group is not None:
+            shard = BatchShard(group, rank, world, batch["image_l"].shape[0],
+                               batch["image_u"].shape[0])
+            draws = _local_draws(draws, shard)
+        dmask = draws.get("dropout", {})
 
         # teacher EMA of the feature extractor BEFORE the forwards
         ema_update(state.k_feature_extractor, state.feature_extractor, 0.99)
 
         with torch.no_grad():
-            with cast():
+            with cast(), _sync(state.ema_model, group):
                 pred_u_t0, _, _ = state.ema_model(batch["image_u"],
                                                   dmask.get("pseudo"), gen)
             probs = torch.softmax(_nhwc(pred_u_t0).float(), dim=-1)
@@ -444,7 +617,7 @@ def make_arco_step(modules: ArcoModules, cfg, num_classes: int,
             u_aug_data, u_aug_label, u_aug_logits = generate_unsup_data(
                 u_img, pseudo_labels, pseudo_logits, mode=cfg.apply_aug,
                 num_classes=num_classes, boxes=draws.get("mix_boxes"),
-                scores=draws.get("mix_scores"), generator=gen)
+                scores=draws.get("mix_scores"), generator=gen, shard=shard)
 
             # two independently drawn strong copies: images_cj2_u for the
             # eqv warp, u_aug_strong for the teacher and student forwards
@@ -474,7 +647,7 @@ def make_arco_step(modules: ArcoModules, cfg, num_classes: int,
                 u_aug_logits, images_cj2_l = q8(u_aug_logits), \
                     q8(images_cj2_l)
 
-            with cast():
+            with cast(), _sync(state.ema_model, group):
                 pred_l_t, _, l_fmap_t = state.ema_model(
                     batch["image_l"], dmask.get("tl"), gen)
                 pred_u_t, _, u_fmap_t = state.ema_model(
@@ -494,9 +667,13 @@ def make_arco_step(modules: ArcoModules, cfg, num_classes: int,
                    "rep_u_teacher": rep_t_all[b_tl:]}
 
         loss, metrics = arco_loss_fn(state, modules, cfg, batch, aug, draws,
-                                     num_classes, max_iterations)
+                                     num_classes, max_iterations, shard)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if group is not None:
+            average_gradients(torch.nn.ModuleList([
+                state.model, state.feature_extractor,
+                state.q_representation]), group)
         set_lr(state.optimizer, poly_lr(optim.base_lr, state.step,
                                         max_iterations, optim.poly_power))
         state.optimizer.step()
@@ -510,6 +687,9 @@ def make_arco_step(modules: ArcoModules, cfg, num_classes: int,
             keys = normalize.l2_normalize(
                 aug["rep_u_teacher"].float(),
                 normalize.feature_axes(aug["rep_u_teacher"]))
+            if shard is not None:
+                # the global unlabeled batch's keys, in its order
+                keys = shard.gather(keys.to(state.random_pool.dtype))
             state.random_pool_ptr = enqueue_fixed(
                 state.random_pool, state.random_pool_ptr, keys)
         state.step += 1

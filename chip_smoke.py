@@ -144,15 +144,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
    phase 6's iter_6, the artifact equal to the eager model at batch 1, 3
    and 8, a softmax export within 1e-5, a CPU-traced artifact moved to the
    card equal too, artifact and eager ms at bs 8; (h) ``repro
-   --validate``.
+   --validate``;
+15. drive the data-parallel stage-2 step (``make_arco_step(mesh=)``) at
+   phase 5's configuration: (a) 3 steps over a one-rank NCCL mesh against
+   3 mesh-less steps from the same seeds, then one step of each under
+   the profiler (kernels, NCCL kernels, busy share); (b) two gloo ranks
+   on the one card at bs 2+2 each against one process at bs 4+4: one
+   f32 step (TF32 off; the contrastive and revisiting terms off, as their
+   kernels take bf16 only) and 3 bf16 steps, each rank's state equal to
+   the other's; every state check reads, beside how far the state is
+   from one process's, how far the steps moved it, which must lie beyond
+   the limit; (c) each rank's ms a step, peak memory and launches (each
+   kernel once a step on each rank), and pool_sims at 2 query rows (a
+   rank's share of a global bs 2+2 over 2 ranks) against its plain
+   version, beside torch.matmul; (d) ``parallel.dryrun``'s
+   ``dryrun_multichip(4)`` at its defaults: 4 gloo ranks on the card, a
+   2x2 ("data", "space") mesh.
 
 It then prints one JSON line with the phases' numbers (phase 14's under
-"serving"), one with the kernels' numbers (each with its 3D record under
-"3d", whose "launches_two_stage" counts phase 9's handoff leg;
-"launches_zoo" counts phase 10's unet_stego leg and "launches_natural"
-phase 12's DeepLab-v2 leg, whose shapes' records sit under "natural";
-pool_sims also at 16 query rows under "rows16") and, last, the device
-line. Without a CUDA GPU, or
+"serving", phase 15's under "data_parallel"), one with the kernels'
+numbers (each with its 3D record under "3d", whose "launches_two_stage"
+counts phase 9's handoff leg; "launches_zoo" counts phase 10's unet_stego
+leg, "launches_natural" phase 12's DeepLab-v2 leg, whose shapes' records
+sit under "natural", "launches_data_parallel" phase 15a's mesh steps and
+"launches_data_parallel_ranks" each rank's bf16 steps in 15b; pool_sims
+also at 16 and 2 query rows under "rows16" and "rows2") and, last, the
+device line. Without a CUDA GPU, or
 without the repository beside it, it prints no result and exits non-zero.
 
 Each kernel's "ms", "plain_ms" and "library_ms" time one call between two
@@ -2910,6 +2927,413 @@ def phase_serving(device, workdir):
     return out
 
 
+# phase 15: the data-parallel stage-2 step. (a) one NCCL rank at phase 5's
+# configuration against the mesh-less step; (b) two gloo ranks on the one
+# card at a global bs of 2 * (B_L + B_U) against one process. The bf16
+# metric tolerance of (a) and (b) is phase 4's card-vs-CPU bound on each
+# loss term: the mesh path's BatchNorm statistics (two passes in f32
+# around an all-reduce) round to bf16 other than cuDNN's, which moves the
+# next layer's inputs by an ulp of bf16 here and there. The state limits
+# are of each part's largest |value| (a module's weights, "<module>_bn"
+# its BatchNorm statistics); each stands about 5x above the most that
+# 3 runs of (a) and 1 of (b) read on an H100, and below what the steps
+# move the part by, which every check asserts: a run that skipped the
+# update reads above its limit. A flipped pixel of the sampler's masks
+# shifts the stratified draw to a neighbouring pixel, so the bank is held
+# by each class's sum of the rows the steps wrote, which such a shift
+# moves by 3% and a skipped enqueue by 100%.
+DP_STEPS = 3
+DP_F32_TOL = dict(rtol=5e-5, atol=1e-7)      # tests/test_parallel.py:184
+DP_BF16_TOL = dict(rtol=5e-2, atol=2e-2)     # phase 4's
+DP_STATE_BF16_TOL = {"model": 3e-3, "model_bn": 1.5e-2, "ema_model": 5e-5,
+                     "ema_model_bn": 3e-3, "feature_extractor": 6e-5,
+                     "k_feature_extractor": 1e-6, "q_representation": 1.5e-4,
+                     "bank": 0.15, "pool": 8e-2}
+# f32, one step without the contrastive and revisiting terms: the feature
+# extractor and the query head take no gradient and the bank is not
+# written, so the student, the teacher and the pool are held (the pool is
+# bf16: one ulp)
+DP_STATE_F32_TOL = {"model": 1e-5, "model_bn": 1e-6, "ema_model": 1e-6,
+                    "ema_model_bn": 1e-6, "pool": 2.0 ** -7}
+DP_MODULES = ("model", "ema_model", "feature_extractor",
+              "k_feature_extractor", "q_representation")
+
+
+def _dp_build(device, b_l, b_u, dtype, mesh=None):
+    """Phase 5's configuration at b_l + b_u (the global batch): the step
+    (over ``mesh``, or mesh-less) and its state with full banks of
+    normalized rows, from seeds, the same in every process. In f32 the
+    contrastive and revisiting terms are off: on the card their kernels
+    take bf16 only (and refuse f32), so the f32 leg holds everything but
+    the kernels, the bank and the pool, the bf16 leg those too."""
+    import torch
+    from arco_torch.config import ArcoConfig, DataConfig
+    from arco_torch.models import net_factory
+    from arco_torch.train import arco2d
+    data = DataConfig()
+    kernels = dtype != torch.float32
+    cfg = ArcoConfig(compute_contrastive=kernels, compute_revisit=kernels)
+    hw = data.patch_size[0]
+    torch.manual_seed(0)
+    model = net_factory("unet", in_chns=data.in_channels,
+                        class_num=data.num_classes)
+    mods = arco2d.make_arco_modules(model, hw, hw, batch_size=b_l,
+                                    total_batch=b_l + b_u)
+    state = arco2d.init_arco_state(mods, cfg, (b_l, 1, hw, hw), seed=0,
+                                   device=device, compute_dtype=dtype)
+    gen = torch.Generator(device=device).manual_seed(0)
+    bank = state.memobank
+    for k in range(bank.num_classes):
+        _l2n_rows(bank.data[k].normal_(generator=gen))
+    bank.count = torch.tensor(bank.capacities, dtype=torch.int32,
+                              device=device)
+    step = arco2d.make_arco_step(mods, cfg, num_classes=data.num_classes,
+                                 max_iterations=30000, device=device,
+                                 mesh=mesh)
+    return state, step, cfg
+
+
+def _dp_batches(b_l, b_u, device, steps):
+    import torch
+    gen = torch.Generator(device=device).manual_seed(1)
+    out = []
+    for _ in range(steps):
+        image_l, label_l = _synthetic_batch(b_l, HW, gen, device)
+        image_u, _ = _synthetic_batch(b_u, HW, gen, device)
+        out.append({"image_l": image_l, "label_l": label_l,
+                    "image_u": image_u})
+    return out
+
+
+def _dp_run(state, step, batches, mesh=None):
+    """The steps over ``batches`` (each rank's shard with a ``mesh``):
+    (metrics of each step, ms of each step, the kernels' launches)."""
+    import torch
+    from arco_torch.kernels import launch_counts, reset_launch_counts
+    from arco_torch.parallel import shard_batch
+    if mesh is not None:
+        batches = [shard_batch(b, mesh) for b in batches]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    metrics, ms = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        m = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items() if v.ndim == 0})
+    return metrics, ms, launch_counts()
+
+
+def _dp_state(state, cfg, steps, pool_rows):
+    """A copy of what the steps change, on the CPU: every module's weights
+    and, under "<module>_bn", its BatchNorm statistics, the bank's rows that ``steps`` steps can
+    write (slots 1 .. steps * enqueue, the bank's pointers starting at 1)
+    with its pointers and counts, and the pool's first ``pool_rows`` rows
+    with its pointer."""
+    import torch
+    out = {}
+    for name in DP_MODULES:
+        module = getattr(state, name)
+        out[name] = {k: v.detach().cpu().clone()
+                     for k, v in module.named_parameters()}
+        bn = {k: v.cpu().clone() for k, v in module.named_buffers()
+              if v.is_floating_point()}
+        if bn:
+            out[name + "_bn"] = bn
+    bank = state.memobank
+    rows = 1 + steps * cfg.memobank_enqueue
+    out["bank"] = {"rows": bank.data[:, :rows].cpu().clone(),
+                   "ptr": bank.ptr.cpu().clone(),
+                   "count": bank.count.cpu().clone()}
+    out["pool"] = state.random_pool[:pool_rows].cpu().clone()
+    out["pool_ptr"] = state.random_pool_ptr
+    return out
+
+
+def _dp_parts(st, ptr):
+    """{part: [tensors]} of a ``_dp_state``, the bank as each class's f64
+    sum of its rows in slots 1 .. ``ptr`` - 1."""
+    import torch
+    parts = {n: list(v.values()) for n, v in st.items()
+             if isinstance(v, dict) and n != "bank"}
+    rows = st["bank"]["rows"].double()
+    parts["bank"] = [torch.stack([rows[k, 1:int(p)].sum(0)
+                                  for k, p in enumerate(ptr)])]
+    parts["pool"] = [st["pool"]]
+    return parts
+
+
+def _dp_compare(label, got, want, init, metric_tol, limits):
+    """Every metric of every step within ``metric_tol``; each part of the
+    state within ``limits[part]`` of the part's largest |value| in
+    ``want``, and the ``init`` state (what the steps started from) beyond it; pointers and
+    counts equal. Returns, for each part, how far ``got`` is ("<part>")
+    and how far ``init`` is ("<part>_moved"), of its largest |value|."""
+    import torch
+    worst = {"metric_rel": 0.0}
+    for i, (g, w) in enumerate(zip(got["metrics"], want["metrics"])):
+        for k in w:
+            d = abs(g[k] - w[k])
+            worst["metric_rel"] = max(worst["metric_rel"],
+                                      d / max(abs(w[k]), 1e-30))
+            if not d <= metric_tol["atol"] + metric_tol["rtol"] * abs(w[k]):
+                raise AssertionError(f"{label} step {i} {k}: {g[k]} vs "
+                                     f"{w[k]}")
+    gs, ws = got["state"], want["state"]
+    for k in ("ptr", "count"):
+        if not torch.equal(gs["bank"][k], ws["bank"][k]):
+            raise AssertionError(f"{label} bank {k} differs")
+    if gs["pool_ptr"] != ws["pool_ptr"]:
+        raise AssertionError(f"{label} pool pointer differs")
+    ptr = ws["bank"]["ptr"]
+    g_parts, w_parts, i_parts = (_dp_parts(st, ptr) for st in
+                                 (gs, ws, init))
+
+    def apart(a, b):
+        scale = max(max(t.double().abs().max().item() for t in b), 1e-30)
+        return max((x.double() - y.double()).abs().max().item()
+                   for x, y in zip(a, b)) / scale
+    for name in w_parts:
+        worst[name] = apart(g_parts[name], w_parts[name])
+        worst[name + "_moved"] = apart(i_parts[name], w_parts[name])
+        if name not in limits:
+            continue
+        tol = limits[name]
+        if not worst[name] <= tol:
+            raise AssertionError(f"{label} {name}: {worst[name]} of its "
+                                 f"largest |value| apart, limit {tol}")
+        if not worst[name + "_moved"] > tol:
+            raise AssertionError(f"{label} {name}: the steps move it by "
+                                 f"{worst[name + '_moved']}, within the "
+                                 f"limit {tol}: the check is blind")
+    _log(f"  {label}: metrics within {worst['metric_rel']:.3g} (relative); "
+         f"state apart by / moved by, of each part's largest |value|: "
+         + ", ".join(f"{n} {worst[n]:.3g} / {worst[n + '_moved']:.3g}"
+                     for n in w_parts))
+    return worst
+
+
+def _trace_step(step, state, batch, log_dir):
+    """One step under utils.profiling.trace: its CUDA kernels, their busy
+    time, the span from the first kernel's start to the last one's end,
+    and the kernels' count by name for the names that are most often
+    launched."""
+    import collections
+    import torch
+    from arco_torch.utils.profiling import trace
+    with trace(str(log_dir)):
+        step(state, batch)
+        torch.cuda.synchronize()
+    files = list(Path(log_dir).glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"trace: files {files}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        raise AssertionError("trace: no CUDA kernel events")
+    start = min(e["ts"] for e in kernels)
+    end = max(e["ts"] + e.get("dur", 0) for e in kernels)
+    busy = sum(e.get("dur", 0) for e in kernels)
+    names = collections.Counter(e["name"][:60] for e in kernels)
+    return {"kernels": len(kernels), "busy_us": busy, "span_us": end - start,
+            "busy_share": busy / max(end - start, 1e-9),
+            "nccl_kernels": sum(n for k, n in names.items()
+                                if "nccl" in k.lower()),
+            "by_name": dict(names.most_common(8))}
+
+
+def _dp_one_nccl_rank(device, workdir):
+    """(a) 3 steps of phase 5's configuration through make_arco_step over
+    a one-rank NCCL mesh against the mesh-less step, from the same seeds
+    (state, batches, draws from the generator); then one more step of
+    each under the profiler."""
+    import torch
+    import torch.distributed as dist
+    from arco_torch.parallel import create_mesh, shard_batch
+    batches = _dp_batches(B_L, B_U, device, DP_STEPS + 1)
+    state0, step0, cfg = _dp_build(device, B_L, B_U, torch.bfloat16)
+    init = _dp_state(state0, cfg, DP_STEPS, DP_STEPS * B_U)
+    metrics, ms, _ = _dp_run(state0, step0, batches[:DP_STEPS])
+    want = {"metrics": metrics,
+            "state": _dp_state(state0, cfg, DP_STEPS, DP_STEPS * B_U)}
+    dist.init_process_group("nccl", init_method=f"file://{workdir}/nccl15",
+                            rank=0, world_size=1)
+    try:
+        mesh = create_mesh()
+        state, step, _ = _dp_build(device, B_L, B_U, torch.bfloat16, mesh)
+        torch.cuda.reset_peak_memory_stats()
+        metrics, dp_ms, counts = _dp_run(state, step, batches[:DP_STEPS],
+                                         mesh)
+        peak = torch.cuda.max_memory_allocated()
+        got = {"metrics": metrics,
+               "state": _dp_state(state, cfg, DP_STEPS, DP_STEPS * B_U)}
+        traces = {"mesh": _trace_step(step, state,
+                                      shard_batch(batches[-1], mesh),
+                                      workdir / "trace15_mesh"),
+                  "meshless": _trace_step(step0, state0, batches[-1],
+                                          workdir / "trace15_meshless")}
+    finally:
+        dist.destroy_process_group()
+    _log(f"  (a) one NCCL rank, bs {B_L}+{B_U}: step ms {ms} mesh-less, "
+         f"{[round(t, 2) for t in dp_ms]} on the mesh; peak "
+         f"{peak / 2**30:.2f} GiB; launches {counts}")
+    for name, t in traces.items():
+        _log(f"  (a) trace of one {name} step: {t['kernels']} kernels "
+             f"({t['nccl_kernels']} NCCL), {t['busy_us'] / 1e3:.2f} ms busy "
+             f"of a {t['span_us'] / 1e3:.2f} ms span "
+             f"({t['busy_share']:.3f}); most launched: {t['by_name']}")
+    worst = _dp_compare("(a) one NCCL rank vs mesh-less", got, want, init,
+                        DP_BF16_TOL, DP_STATE_BF16_TOL)
+    for name, n in counts.items():
+        if n != DP_STEPS:
+            raise AssertionError(f"(a) {name} launched {n} times in "
+                                 f"{DP_STEPS} steps")
+    del state, step, state0, step0, want, got
+    torch.cuda.empty_cache()
+    return counts, {"step_ms": dp_ms, "meshless_step_ms": ms,
+                    "peak_gib": peak / 2**30, "trace": traces, **worst}
+
+
+def _dp_rank(rank, workdir):
+    """One of (b)'s two gloo ranks on the one card: the f32 step and the
+    bf16 steps over this rank's shard; writes its metrics, ms, peak,
+    launches, per-tensor sums of its state (equal on both ranks when
+    their states are equal bit for bit) and, rank 0, the state itself to
+    ``workdir``."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+    import torch.distributed as dist
+    from arco_torch.parallel import create_mesh
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    device = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/gloo15",
+                            rank=rank, world_size=2)
+    try:
+        out = {}
+        mesh = create_mesh((2,), device_type="cuda")
+        for label, dtype, steps in (("f32", torch.float32, 1),
+                                    ("bf16", torch.bfloat16, DP_STEPS)):
+            batches = _dp_batches(2 * B_L, 2 * B_U, device, steps)
+            state, step, cfg = _dp_build(device, 2 * B_L, 2 * B_U, dtype,
+                                         mesh)
+            torch.cuda.reset_peak_memory_stats()
+            metrics, ms, counts = _dp_run(state, step, batches, mesh)
+            st = _dp_state(state, cfg, steps, steps * 2 * B_U)
+            out[label] = {"metrics": metrics, "ms": ms, "launches": counts,
+                          "peak_gib": torch.cuda.max_memory_allocated()
+                          / 2**30, "sums": _dp_sums(st)}
+            if rank == 0:
+                out[label]["state"] = st
+            del state, step, batches
+            torch.cuda.empty_cache()
+        torch.save(out, f"{workdir}/dp_rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_sums(st):
+    """Per-tensor float64 sums of a ``_dp_state``: two states that are
+    bit for bit equal have equal sums."""
+    import torch
+    return {k: ({kk: vv.double().sum().item() for kk, vv in v.items()}
+                if isinstance(v, dict) else
+                v.double().sum().item() if isinstance(v, torch.Tensor)
+                else v)
+            for k, v in st.items()}
+
+
+def _dp_two_gloo_ranks(device, workdir):
+    """(b) two gloo ranks on the one card at a global bs of 2 * (B_L +
+    B_U), B_L + B_U a rank, against one process over that batch: one f32
+    step (TF32 off) at DP_F32_TOL, then DP_STEPS bf16 steps at
+    DP_BF16_TOL. Returns each rank's launches and the numbers."""
+    import torch
+    import torch.multiprocessing as mp
+    want = {}
+    for label, dtype, steps in (("f32", torch.float32, 1),
+                                ("bf16", torch.bfloat16, DP_STEPS)):
+        batches = _dp_batches(2 * B_L, 2 * B_U, device, steps)
+        state, step, cfg = _dp_build(device, 2 * B_L, 2 * B_U, dtype)
+        init = _dp_state(state, cfg, steps, steps * 2 * B_U)
+        metrics, ms, _ = _dp_run(state, step, batches)
+        want[label] = {"metrics": metrics, "ms": ms, "init": init,
+                       "state": _dp_state(state, cfg, steps,
+                                          steps * 2 * B_U)}
+        del state, step, batches
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mp.spawn(_dp_rank, nprocs=2, args=(str(workdir),), join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(f"{workdir}/dp_rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    out = {"spawn_s": spawn_s}
+    launches = []
+    for label, tol, limits in (("f32", DP_F32_TOL, DP_STATE_F32_TOL),
+                               ("bf16", DP_BF16_TOL, DP_STATE_BF16_TOL)):
+        steps = len(want[label]["metrics"])
+        worst = _dp_compare(f"(b) 2 gloo ranks {label}", ranks[0][label],
+                            want[label], want[label]["init"], tol, limits)
+        if ranks[0][label]["sums"] != ranks[1][label]["sums"]:
+            raise AssertionError(f"(b) {label}: the ranks' states differ")
+        for r, rec in enumerate(ranks):
+            if rec[label]["metrics"] != ranks[0][label]["metrics"]:
+                raise AssertionError(f"(b) {label}: rank {r}'s metrics "
+                                     f"differ from rank 0's")
+            for name, n in rec[label]["launches"].items():
+                if n != (steps if label == "bf16" else 0):
+                    raise AssertionError(f"(b) {label} rank {r}: {name} "
+                                         f"launched {n} times in {steps}")
+            _log(f"  (b) {label} rank {r}: step ms "
+                 f"{[round(t, 2) for t in rec[label]['ms']]}, peak "
+                 f"{rec[label]['peak_gib']:.2f} GiB, launches "
+                 f"{rec[label]['launches']} in {steps} steps")
+        _log(f"  (b) {label} one process at bs {2 * B_L}+{2 * B_U}: step ms "
+             f"{[round(t, 2) for t in want[label]['ms']]}")
+        out[label] = {**worst, "meshless_step_ms": want[label]["ms"],
+                      "ranks": [{k: rec[label][k] for k in
+                                 ("ms", "peak_gib", "launches")}
+                                for rec in ranks]}
+        if label == "bf16":
+            launches = [rec[label]["launches"] for rec in ranks]
+    del want, ranks
+    torch.cuda.empty_cache()
+    return launches, out
+
+
+def _dp_dryrun():
+    """(d) parallel.dryrun's entry point at its defaults, on the card:
+    4 ranks (gloo on the one card's tensors), JAX's dry-run step on a 2x2
+    ("data", "space") mesh and the depth-sharded forward with its halo
+    exchange; it raises if a rank fails."""
+    from arco_torch.parallel.dryrun import dryrun_multichip
+    t0 = time.perf_counter()
+    dryrun_multichip(4)
+    return time.perf_counter() - t0
+
+
+def phase_data_parallel(device, workdir):
+    """Phase 15, the data-parallel stage-2 step on the one card: (a) one
+    NCCL rank against the mesh-less step; (b) two gloo ranks against one
+    process; (c) pool_sims at 2 query rows (a rank's share of a global bs
+    2+2 over 2 ranks) against its plain version; (d) dryrun_multichip(4)
+    on the card."""
+    import torch
+    t_start = time.perf_counter()
+    counts, one = _dp_one_nccl_rank(device, workdir)
+    launches_ranks, two = _dp_two_gloo_ranks(device, workdir)
+    gen = torch.Generator(device=device).manual_seed(15)
+    rows2 = _pool_sims_at(gen, device, 2, C * HW * HW)
+    dryrun_s = _dp_dryrun()
+    _log(f"  (d) dryrun_multichip(4) on the card in {dryrun_s:.1f} s")
+    out = {"one_nccl_rank": one, "two_gloo_ranks": two,
+           "dryrun_s": dryrun_s, "s": time.perf_counter() - t_start}
+    _log(f"phase 15 (data parallel) in {out['s']:.1f} s")
+    return counts, launches_ranks, rows2, out
+
+
 def main():
     try:
         import torch
@@ -2951,6 +3375,8 @@ def main():
         natural_counts, natural = phase_natural(device, workdir)
         pretrained = phase_pretrained(device, workdir, root)
         serving = phase_serving(device, workdir)
+        dp_counts, dp_rank_counts, rows2, data_parallel = \
+            phase_data_parallel(device, workdir)
     for k in kernels:
         name = k["name"]
         k["launches"] = counts[name]
@@ -2958,6 +3384,11 @@ def main():
         k["launches_two_stage"] = two_counts[name]
         k["launches_zoo"] = zoo_counts[name]
         k["launches_natural"] = natural_counts[name]
+        k["launches_data_parallel"] = dp_counts[name]
+        if name == "pool_sims":
+            k["rows2"] = rows2
+        k["launches_data_parallel_ranks"] = [c[name] for c in
+                                             dp_rank_counts]
         k["natural"] = natural["kernels"][name]
         k["3d"] = {**kernels_3d[name], "launches": counts_3d[name],
                    "launches_cli": cli3d_counts[name],
@@ -2968,7 +3399,8 @@ def main():
                       "unet3d": unet3d, "zoo": zoo, "rest": rest,
                       "natural": {k: v for k, v in natural.items()
                                   if k != "kernels"},
-                      "pretrained": pretrained, "serving": serving}))
+                      "pretrained": pretrained, "serving": serving,
+                      "data_parallel": data_parallel}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

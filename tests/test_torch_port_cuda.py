@@ -214,6 +214,27 @@ def test_pool_sims_at_the_3d_shape(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b", [2, 1])
+def test_pool_sims_at_a_ranks_share_of_the_2d_step(cuda, b):
+    """The data-parallel 2D step's revisiting loss: a rank's 2 * b_u rows
+    (b_u = 1 at a global 2 + 2 over 2 ranks; 1 row where a rank holds one
+    query) of 496 x 256 x 256 features against 36 pool rows."""
+    f = 496 * 256 * 256
+    gen = torch.Generator(device=cuda).manual_seed(20 + b)
+    p = _normalized((36, f), gen, cuda)
+    q = torch.randn((b, f), generator=gen, device=cuda) / f ** 0.5 \
+        + 0.7 * torch.arange(1, b + 1, device=cuda)[:, None] / b \
+        * p[:b].float()
+    q = torch.nn.functional.normalize(q, dim=-1).to(torch.bfloat16)
+    got = pool_sims.pool_similarities(q, p)
+    torch.cuda.synchronize()
+    want = pool_sims.pool_similarities_plain(q, p)
+    torch.testing.assert_close(got, want, rtol=1e-3,
+                               atol=1e-3 * want.abs().max().item())
+    assert torch.equal(got, pool_sims.pool_similarities(q, p))
+
+
+@pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     a = torch.randn(1, 2, 16, device=cuda)            # f32, not bf16
     with pytest.raises(ValueError):
