@@ -20,39 +20,63 @@
 // anchors and makes one pass: it reads e, the indices and each staged row
 // once.
 //
-// What bounds them: bytes. A row is C = 496 bf16 (992 B) and costs 2*C
-// flops, ~1 flop per byte against the ~295 of the tensor-core ridge, so the
-// design moves fewer rows and does its dot products in f32 FMAs: tensor
-// cores are not used. The main path's sampler gives the locality:
+// What bounds them: the bytes of the sampled rows (C bf16 each), read from
+// device memory once a block. The main path's sampler gives the locality:
 // neg_idx[k,q,n] = rank[k, n*Q + q] with stratified ranks non-decreasing in
 // the draw index (losses/contrastive.py), so at a fixed n neighbouring
 // queries draw from neighbouring strata of the bank and often the same row.
 //
-// Grid: (ceil(Q/G) query groups, S chunks of the samples, K classes), 256
-// threads, with G = 16 queries and S = 4 chunks. A block loads its
-// [G, N/S] indices and plans its stages: a (query, n) pair whose row equals
-// query q - 1's at the same n reads that query's copy, so only run heads
-// are staged, R = 40 rows to a stage, and a stage covers as many pairs as
-// its R rows serve. cp.async copies a stage's rows (16-byte chunks) into
-// one slot of a 2-slot ring while the other slot's stage is computed. At
-// the main path's shapes (banks of 50000/30000 rows, K=4, Q=256, N=512)
-// the staging copies 163,953 of the 524,288 sampled rows at 'smc' draws
-// (the main path's; 140,000 distinct), 290,198 at 'asmc', and all of them
-// at uniform draws. The tiling is the fastest fwd + bwd at 'smc' of those
-// timed on the H100 (PERF.md).
-//   fwd: a group of 16 lanes computes one (query, n) dot product, each lane
-//        4 chunks of 8 channels against its part of the query's anchor,
-//        held in registers; two samples per pass share one butterfly sum.
-//        e goes out coalesced over n, and each block writes the partial
-//        denominators of its chunk of samples.
-//   bwd: each thread owns fixed (query, 16-byte chunk) pairs of the group's
-//        [G, C] output and accumulates e * invtot * row in registers; each
-//        block writes a [G, C] partial for its chunk of samples.
+// The tile. Grid: (ceil(Q/G) query groups, S chunks of the samples, K
+// classes), 256 threads, G = 16 queries. A block loads its [G, N/S]
+// indices and plans its stages: a (query, n) pair whose row equals query
+// q - 1's at the same n reads that query's copy, so only run heads are
+// staged, R rows to a stage, and a stage covers as many pairs as its R rows
+// serve. cp.async copies a stage's rows (16-byte chunks) into one slot of a
+// 2-slot ring while the other slot's stage is computed. At the 2D shapes
+// (banks of 50000/30000 rows, K=4, Q=256, N=512) the staging copies 164,037
+// of the 524,288 sampled rows at 'smc' draws (the main path's; 140,000
+// distinct), 290,198 at 'asmc', and all of them at uniform draws.
+//
+// The work on a staged stage runs on the tensor cores
+// (mma.sync.m16n8k16 bf16 x bf16 -> f32, operands through ldmatrix): no
+// pair re-reads its row's C values out of shared memory and widens them to
+// f32, and one instruction covers 16 rows x 8 queries x 16 channels.
+//   fwd: the group's anchors are the B operand (two n8 tiles, staged once)
+//        and the stage's rows the A operand (m16 tiles): S[R, 16] = rows .
+//        anchors^T over k-steps of 16 channels. When a stage has fewer than
+//        8 m16 tiles the warps split the k-steps and S is the fixed-order
+//        sum of their partial tiles. Each pair then reads S[head][query].
+//        bf16 x bf16 products are exact in f32: only the order of the sum
+//        changes. e goes out coalesced over n, and each block writes the
+//        partial denominators of its chunk of samples.
+//   bwd: ga[16, C] += W[16, R] . rows[R, C], M = the 16 queries, K = the
+//        stage's rows (B operand through ldmatrix.trans), N = C in n8 tiles
+//        split over the warps (at C <= 112 the warps also split the
+//        k-steps, summed in a fixed order at the end). W[g][r] = e * invtot
+//        of the pair of query g that reads staged row r, else 0: a run head
+//        serves one n and distinct queries, so no entry has two pairs. The
+//        block writes a stage's W into shared memory from the plan, one
+//        entry a thread, and the warps read their A fragments with
+//        ldmatrix. W is f32 and the tensor cores take bf16, so W = hi + lo,
+//        two bf16 products (W - hi - lo <= 2^-16 |W|, below the f32 sums'
+//        rounding at these sizes). The accumulators stay in registers over
+//        the whole tile, and each block writes a [G, C] partial for its
+//        chunk of samples.
+// The ring's row stride is an odd number of 16-byte chunks, so the eight
+// rows of an ldmatrix fall in eight distinct bank groups; the chunk past C
+// (C a multiple of 8, not of 16) and the rows past a stage's last, up to
+// its m16 tile, are zeros.
+// With the products on the tensor cores a block mostly waits on its
+// stages' copies (one stage in flight while the other is computed; on the
+// H100 that wait, not the products, holds both kernels above the bound,
+// PERF.md), so the stage size follows the shared memory: the most blocks
+// an SM that fit (3, or 2 for the backward at C > 256, whose accumulators
+// need more registers), then as many rows a stage as fit. At C = 496: 2
+// blocks of 32 rows; at C = 256: 3 blocks of 32 rows; at C = 16: 3 blocks
+// of 384 rows, about a whole tile. At small K * Q the samples go to more
+// chunks (S = 4, 8 or 16), so the grid has a block for each SM.
 // A second grid sums the S partials in a fixed order: the results are
 // bit-identical from run to run, and no float atomics are used.
-// On the H100 the f32 FMA work, not the bytes, holds both kernels above the
-// bound (PERF.md): each pair still reads its row's 992 bytes from shared
-// memory and widens 496 bf16 values.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,22 +86,34 @@
 
 namespace {
 
-using arco::unpack8;
 using arco::warp_sum;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// Blocks per SM that the register budget must allow: at the main path's
-// N = 512 a block takes ~106 KB of shared memory, so two fit an SM.
-constexpr int kMinBlocks = 2;
 constexpr int kG = 16;                       // queries per block
-constexpr int kS = 4;                        // chunks of the samples
-constexpr int kR = 40;                       // staged rows per stage
-constexpr int kLanes = kThreads / kG;        // fwd: lanes per dot product
-constexpr int kMaxJ = 4;                     // fwd: 16-byte chunks per lane
-constexpr int kMaxOwn = 4;                   // bwd: output chunks per thread
+constexpr int kMinSplits = 4, kMaxSplits = 16;
+constexpr int kMinChunk = 32;                // samples a chunk, at least
+constexpr int kSms = 132;                    // H100 SXM
+constexpr int kMaxRows = 512;                // staged rows per stage
+constexpr int kMaxC = 512;
+constexpr int kRedFloats = kWarps * 32 * 8;  // bwd: k-split partials
 constexpr size_t kSmemMax = 232448;          // Hopper's 227 KB per block
+constexpr size_t kSmemSM = 233472;           // per SM, 1 KB a block reserved
+constexpr size_t kSmemReserved = 1024;
 constexpr int kMaxDevices = 64;
+
+// The most blocks an SM that the kernels' registers allow (<= 85 a thread
+// for 3): the forward (47) and the backward up to 2 n8-tile pairs a warp
+// (C <= 256, 55-61) take 3, the backward with 3 or 4 pairs (88) 2. The
+// forward's launch bounds ask for 2 only: the code ptxas schedules under a
+// bound of 3 ran ~10% slower on the H100 at C = 256 (PERF.md).
+constexpr int kMaxBlocks = 3;
+__host__ __device__ constexpr int max_blocks(bool fwd, int pairs) {
+  return fwd || pairs <= 2 ? kMaxBlocks : 2;
+}
+
+__host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -94,30 +130,115 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// Four 8x8 bf16 matrices; lane l gives the address of row l % 8 of matrix
+// l / 8, and receives row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1 of
+// each (of its transpose with .trans).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s)
+      : "memory");
+}
+
+// d += a . b, a 16x16 row-major, b 16x8 column-major, bf16, f32 sums
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // Dynamic shared memory of one block, in bytes from its start (the ring of
-// staged rows first, 16-byte aligned). The P = G * chunk (query, sample)
-// pairs of a tile are ordered o = nl * G + g, sample-major.
+// staged rows first, 16-byte aligned), and the tile's sizes; computed on
+// the host and passed to the kernels. The P = G * chunk (query, sample)
+// pairs of a tile are ordered o = nl * G + g, sample-major. A ring row holds
+// `stride` 16-byte chunks: the row's C / 8, a zero chunk when C / 8 is odd,
+// and one more to make the count odd.
+//
+// Stage size: the copies of a stage are what a block waits on, so an SM
+// wants many rows in flight and several blocks to overlap one block's
+// planning and barriers with another's copies (on the H100, 3 blocks of 32
+// rows beat 2 of 48 at C = 256). The layout takes the most blocks an SM
+// (3, or 2 where the registers allow no more) at which a stage of 32 rows
+// fits, else the most at which 16 fit, else one, and then as many rows as
+// fit, up to 512.
 struct Layout {
-  int c8, chunk, P;
-  size_t ring, pk, idx, ostart, scan, heads, bytes;
-  __host__ __device__ Layout(int N, int C) {
+  int c8, ks, stride, tlog, rows, mt, kp, npw, kpb, pairs, chunk, P, blocks;
+  int wstride;
+  size_t ring, spart, anchors, w, val, idx, head, heads, ostart, scan, bytes;
+
+  Layout(int N, int C, int S, bool fwd) {
     c8 = C / 8;
-    chunk = (N + kS - 1) / kS;
+    ks = (c8 + 1) / 2;                  // k16 steps (fwd), n8-tile pairs (bwd)
+    stride = 2 * ks + 1;
+    tlog = 0;                           // issue: 2^tlog threads a row
+    while ((1 << tlog) < imin(c8, 32)) ++tlog;
+    npw = 1;                            // bwd: warps across the n8-tile pairs
+    while (npw < imin(ks, kWarps)) npw *= 2;
+    kpb = kWarps / npw;                 // bwd: warps across the k-steps
+    pairs = (ks + npw - 1) / npw;       // bwd: n8-tile pairs a warp
+    chunk = (N + S - 1) / S;
     P = kG * chunk;
+    const int most = max_blocks(fwd, pairs);
+    for (int least = 32; least >= 16; least -= 16)
+      for (blocks = most; blocks >= 2; --blocks)
+        if (fit(fwd, kSmemSM / blocks - kSmemReserved, least)) return;
+    blocks = 1;
+    fit(fwd, kSmemMax, 16);
+  }
+
+  // As many rows as fit `budget` bytes, if at least `least` do.
+  bool fit(bool fwd, size_t budget, int least) {
+    for (rows = kMaxRows; rows > least && place(fwd) > budget; rows -= 16) {
+    }
+    return place(fwd) <= budget;
+  }
+
+  size_t place(bool fwd) {
+    mt = rows / 16;                     // fwd: m16 tiles of a stage
+    kp = mt >= kWarps ? 1 : kWarps / mt;   // fwd: warps across k-steps
     size_t off = 0;
     ring = off;
-    off += (size_t)2 * kR * c8 * sizeof(uint4);
-    pk = off;                             // int2 [P]
-    off += (size_t)P * 8;
-    idx = off;                            // int32 [P]
+    size_t ring_bytes = (size_t)2 * rows * stride * 16;
+    if (!fwd && ring_bytes < kRedFloats * sizeof(float))
+      ring_bytes = kRedFloats * sizeof(float);
+    off += ring_bytes;
+    spart = anchors = w = off;
+    wstride = rows + 8;                 // odd in 16-byte units, as the ring
+    if (fwd) {
+      off += (size_t)kp * rows * kG * sizeof(float);   // f32 [kp, R, G]
+      anchors = off;                                    // [G, stride]
+      off += (size_t)kG * stride * 16;
+    } else {
+      off += (size_t)2 * kG * wstride * 2;  // bf16 [2][G][wstride]: hi, lo
+    }
+    val = off;                          // f32 [P]: e (fwd), e * invtot (bwd)
     off += (size_t)P * 4;
-    ostart = off;                         // int32 [stages + 1]
-    off += (size_t)((P + kR - 1) / kR + 1) * 4;
-    scan = off;                           // int32 [kWarps]
-    off += kWarps * 4;
-    heads = off;                          // int16 [P]
+    idx = off;                          // int32 [P], -1 outside the tile
+    off += (size_t)P * 4;
+    head = off;                         // int16 [P]: pair o -> its run head
     off += (size_t)P * 2;
-    bytes = off;
+    heads = off;                        // int16 [P]: run head h -> pair
+    off += (size_t)P * 2;
+    ostart = off;                       // int32 [stages + 1]
+    off += (size_t)((P + rows - 1) / rows + 1) * 4;
+    scan = off;                         // int32 [kWarps]
+    off += kWarps * 4;
+    return bytes = off;
   }
 };
 
@@ -130,20 +251,28 @@ struct Tile {
 // Shared-memory views of one block.
 struct Smem {
   uint4* ring;
-  // pair o: .x = the run head h whose staged row it reads, .y = the bits
-  // of its value (fwd: e; bwd: e * invtot), one 8-byte load for both
-  int2* pk;
-  int32_t* idx;     // neg_idx of pair o, -1 outside the tile
+  float* spart;     // fwd: stage similarities, [kp][R][G] partial tiles
+  uint4* anchors;   // fwd: the group's anchors, [G][stride] chunks
+  __nv_bfloat16* whi;   // bwd: a stage's weights W[G][R], hi and lo parts
+  __nv_bfloat16* wlo;
+  float* val;
+  int32_t* idx;
+  int16_t* head;
+  int16_t* heads;
   int32_t* ostart;  // stage st covers the pairs [ostart[st], ostart[st+1])
   int32_t* scan;
-  int16_t* heads;   // pair o of run head h
   __device__ Smem(unsigned char* base, const Layout& L) {
     ring = reinterpret_cast<uint4*>(base + L.ring);
-    pk = reinterpret_cast<int2*>(base + L.pk);
+    spart = reinterpret_cast<float*>(base + L.spart);
+    anchors = reinterpret_cast<uint4*>(base + L.anchors);
+    whi = reinterpret_cast<__nv_bfloat16*>(base + L.w);
+    wlo = whi + kG * L.wstride;
+    val = reinterpret_cast<float*>(base + L.val);
     idx = reinterpret_cast<int32_t*>(base + L.idx);
+    head = reinterpret_cast<int16_t*>(base + L.head);
+    heads = reinterpret_cast<int16_t*>(base + L.heads);
     ostart = reinterpret_cast<int32_t*>(base + L.ostart);
     scan = reinterpret_cast<int32_t*>(base + L.scan);
-    heads = reinterpret_cast<int16_t*>(base + L.heads);
   }
 };
 
@@ -152,23 +281,31 @@ __device__ __forceinline__ Tile tile_of(int Q, int N, const Layout& L) {
   t.k = blockIdx.z;
   t.s = blockIdx.y;
   t.q0 = blockIdx.x * kG;
-  t.gq = min(kG, Q - t.q0);
+  t.gq = imin(kG, Q - t.q0);
   t.n0 = t.s * L.chunk;
-  t.nn = max(0, min(L.chunk, N - t.n0));
+  t.nn = imax(0, imin(L.chunk, N - t.n0));
   t.heads = t.stages = 0;
   return t;
 }
 
+// The chunk past C / 8 of every ring row, when C / 8 is odd: zeros, the
+// last k-step's (fwd) or n8 tile's (bwd) padding. The copies never write it.
+__device__ __forceinline__ void zero_pad(const Layout& L, const Smem& sm) {
+  if (L.c8 & 1)
+    for (int r = threadIdx.x; r < 2 * L.rows; r += kThreads)
+      sm.ring[r * L.stride + L.c8] = make_uint4(0, 0, 0, 0);
+}
+
 // Load the tile's indices and plan its stages. A valid pair is a run head
 // when g == 0 or its index differs from query g - 1's at the same n; only
-// run heads are staged. Head h gets slot h % R of stage h / R, and every
+// run heads are staged. Head h gets row h % R of stage h / R, and every
 // pair reads its run head's row, so a stage covers a contiguous range of
 // pairs: at the sampler's stratified draws a stage of R rows serves several
 // times R pairs.
-__device__ void plan_tile(const int32_t* neg_idx, int Q, int N,
+__device__ __forceinline__ void plan_tile(const int32_t* neg_idx, int Q, int N,
                           const Layout& L, const Smem& sm, Tile& t) {
   constexpr int G = kG;
-  const int P = L.P, chunk = L.chunk;
+  const int P = L.P, chunk = L.chunk, R = L.rows;
   const int32_t* base = neg_idx + ((long long)t.k * Q + t.q0) * N + t.n0;
   for (int i = threadIdx.x; i < P; i += kThreads) {
     const int g = i / chunk, nl = i - g * chunk;    // coalesced over n
@@ -183,7 +320,7 @@ __device__ void plan_tile(const int32_t* neg_idx, int Q, int N,
   // each thread numbers the heads of a contiguous run of pairs, after an
   // exclusive scan of the runs' head counts
   const int per = (P + kThreads - 1) / kThreads;
-  const int lo = min(P, (int)threadIdx.x * per), hi = min(P, lo + per);
+  const int lo = imin(P, (int)threadIdx.x * per), hi = imin(P, lo + per);
   int cnt = 0;
   for (int o = lo; o < hi; ++o) cnt += is_head(o);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -203,31 +340,37 @@ __device__ void plan_tile(const int32_t* neg_idx, int Q, int N,
   for (int o = lo; o < hi; ++o) {
     if (is_head(o)) {
       sm.heads[h] = (int16_t)o;
-      if (h % kR == 0) sm.ostart[h / kR] = o;
+      if (h % R == 0) sm.ostart[h / R] = o;
       ++h;
     }
-    sm.pk[o].x = h - 1;
+    sm.head[o] = (int16_t)(h - 1);
   }
   t.heads = total;
-  t.stages = (total + kR - 1) / kR;
+  t.stages = (total + R - 1) / R;
   if (threadIdx.x == 0) sm.ostart[t.stages] = P;
   __syncthreads();
 }
 
 // Copy the rows of stage st's run heads into a ring slot, row r of the
-// slot for head st * R + r. Warp w takes the rows r = w, w + 8, ...; its
-// lanes copy the row's 16-byte chunks.
-__device__ __forceinline__ void issue_stage(const __nv_bfloat16* kb, int c8,
-                                            const Tile& t, const Smem& sm,
-                                            uint4* slot, int st) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < kR; r += kWarps) {
-    const int h = st * kR + r;
-    if (h >= t.heads) break;
+// slot for head st * R + r, 2^tlog threads a row; then zero the slot's rows
+// past the stage's last, up to its last m16 tile (the bwd weighs them 0,
+// and 0 * stale bits could be NaN).
+__device__ __forceinline__ void issue_stage(const __nv_bfloat16* kb,
+                                            const Layout& L, const Tile& t,
+                                            const Smem& sm, uint4* slot,
+                                            int st) {
+  const int h0 = st * L.rows, nr = imin(L.rows, t.heads - h0);
+  const int tpr = 1 << L.tlog;
+  for (int r = threadIdx.x >> L.tlog; r < nr; r += kThreads >> L.tlog) {
     const uint4* row = reinterpret_cast<const uint4*>(
-        kb + (long long)sm.idx[sm.heads[h]] * (8 * c8));
-    for (int j = lane; j < c8; j += 32) cp_async16(slot + r * c8 + j, row + j);
+        kb + (long long)sm.idx[sm.heads[h0 + r]] * (8 * L.c8));
+    uint4* dst = slot + r * L.stride;
+    for (int j = threadIdx.x & (tpr - 1); j < L.c8; j += tpr)
+      cp_async16(dst + j, row + j);
   }
+  const int nz = (((nr + 15) >> 4) << 4) - nr;
+  for (int i = threadIdx.x; i < nz * L.stride; i += kThreads)
+    slot[nr * L.stride + i] = make_uint4(0, 0, 0, 0);
 }
 
 // The staged walk over the tile through the 2-slot ring; compute(st, slot)
@@ -235,25 +378,27 @@ __device__ __forceinline__ void issue_stage(const __nv_bfloat16* kb, int c8,
 // thread is done with stage st - 1, whose slot the copies of stage st + 1
 // then refill while stage st is computed.
 template <typename Compute>
-__device__ __forceinline__ void walk(const __nv_bfloat16* kb, int c8,
-                                     const Tile& t, const Smem& sm,
-                                     Compute&& compute) {
-  const int slot_len = kR * c8;
-  if (t.stages > 0) issue_stage(kb, c8, t, sm, sm.ring, 0);
+__device__ __forceinline__ void walk(const __nv_bfloat16* kb,
+                                     const Layout& L, const Tile& t,
+                                     const Smem& sm, Compute&& compute) {
+  const int slot_len = L.rows * L.stride;
+  if (t.stages > 0) issue_stage(kb, L, t, sm, sm.ring, 0);
   cp_async_commit();
   for (int st = 0; st < t.stages; ++st) {
     cp_async_wait_all();
     __syncthreads();
     if (st + 1 < t.stages)
-      issue_stage(kb, c8, t, sm, sm.ring + ((st + 1) & 1) * slot_len, st + 1);
+      issue_stage(kb, L, t, sm, sm.ring + ((st + 1) & 1) * slot_len, st + 1);
     cp_async_commit();
     compute(st, sm.ring + (st & 1) * slot_len);
   }
+  cp_async_wait_all();
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-infonce_fwd_kernel(const __nv_bfloat16* __restrict__ anchors,  // [K,Q,C]
+__global__ void __launch_bounds__(kThreads, 2)
+infonce_fwd_kernel(const Layout L,
+                   const __nv_bfloat16* __restrict__ anchors,  // [K,Q,C]
                    const __nv_bfloat16* __restrict__ bank,     // [K,cap,C]
                    const int32_t* __restrict__ neg_idx,        // [K,Q,N]
                    float* __restrict__ e,                      // [K,Q,N]
@@ -261,80 +406,72 @@ infonce_fwd_kernel(const __nv_bfloat16* __restrict__ anchors,  // [K,Q,C]
                    int Q, int N, int C, long long cap, float inv_temp) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int G = kG;
-  const Layout L(N, C);
+  const int S = gridDim.y;
   const Smem sm(smem, L);
-  const int c8 = L.c8;
   Tile t = tile_of(Q, N, L);
-
-  // Lane group g (kLanes lanes) serves query g, and lane l the chunks
-  // j = l + kLanes * i, so the thread's part of the anchor lives in
-  // registers.
-  const int g = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
   const long long qbase = (long long)t.k * Q + t.q0;
-  float a[kMaxJ][8];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  // the group's anchors, zeros past the group and past C
   {
-    const uint4* arow =
-        reinterpret_cast<const uint4*>(anchors + (qbase + g) * C);
-#pragma unroll
-    for (int i = 0; i < kMaxJ; ++i) {
-      const int j = lane + kLanes * i;
-      if (g < t.gq && j < c8) {
-        unpack8(__ldg(arow + j), a[i]);
-      } else {
-#pragma unroll
-        for (int v = 0; v < 8; ++v) a[i][v] = 0.f;
-      }
+    const uint4* arow = reinterpret_cast<const uint4*>(anchors + qbase * C);
+    for (int i = threadIdx.x; i < G * L.stride; i += kThreads) {
+      const int g = i / L.stride, j = i - g * L.stride;
+      sm.anchors[i] = g < t.gq && j < L.c8
+                          ? __ldg(arow + (long long)g * L.c8 + j)
+                          : make_uint4(0, 0, 0, 0);
     }
   }
+  zero_pad(L, sm);
   plan_tile(neg_idx, Q, N, L, sm, t);
 
   const __nv_bfloat16* kb = bank + (long long)t.k * cap * C;
-  // <row, anchor> partial sum of this lane's chunks of staged row h. The
-  // loads are not behind a branch, so the two samples' loads overlap.
-  auto dot = [&](const uint4* slot, int h) {
-    const uint4* row = slot + h * c8;
-    uint4 raw[kMaxJ];
-#pragma unroll
-    for (int i = 0; i < kMaxJ; ++i) {
-      const int j = lane + kLanes * i;
-      raw[i] = j < c8 ? row[j] : make_uint4(0, 0, 0, 0);
+  // A: lane l addresses row (l & 7) + 8 ((l >> 3) & 1) of the m16 tile at
+  // k-chunk l >> 4 (matrices rows 0-7 / 8-15 x k 0-7 / 8-15); B: anchor
+  // (l & 7) + 8 (l >> 4) at k-chunk (l >> 3) & 1 (n8 tile 0 k lo, k hi,
+  // then n8 tile 1)
+  const int a_off = ((lane & 7) + 8 * ((lane >> 3) & 1)) * L.stride +
+                    (lane >> 4);
+  const uint4* brow =
+      sm.anchors + ((lane & 7) + 8 * (lane >> 4)) * L.stride +
+      ((lane >> 3) & 1);
+  const int g = lane >> 2, tq = lane & 3;
+  const int units = L.mt * L.kp;
+  walk(kb, L, t, sm, [&](int st, const uint4* slot) {
+    const int h0 = st * L.rows;
+    const int mtiles = (imin(L.rows, t.heads - h0) + 15) >> 4;
+    // warp unit u: m16 tile u % mt, k-steps u / mt, u / mt + kp, ...
+    for (int u = warp; u < units; u += kWarps) {
+      const int mtile = u % L.mt, kpart = u / L.mt;
+      if (mtile >= mtiles) continue;
+      float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+      const uint4* arow = slot + mtile * 16 * L.stride + a_off;
+      for (int kk = kpart; kk < L.ks; kk += L.kp) {
+        uint32_t a[4], b[4];
+        ldsm_x4(a, arow + 2 * kk);
+        ldsm_x4(b, brow + 2 * kk);
+        mma16816(acc[0], a, b[0], b[1]);
+        mma16816(acc[1], a, b[2], b[3]);
+      }
+      float* sp = sm.spart + ((size_t)kpart * L.rows + mtile * 16 + g) * G +
+                  2 * tq;
+      *reinterpret_cast<float2*>(sp) = make_float2(acc[0][0], acc[0][1]);
+      *reinterpret_cast<float2*>(sp + 8 * G) =
+          make_float2(acc[0][2], acc[0][3]);
+      *reinterpret_cast<float2*>(sp + 8) = make_float2(acc[1][0], acc[1][1]);
+      *reinterpret_cast<float2*>(sp + 8 * G + 8) =
+          make_float2(acc[1][2], acc[1][3]);
     }
-    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < kMaxJ; ++i) {
-      float x[8];
-      unpack8(raw[i], x);
-#pragma unroll
-      for (int v = 0; v < 8; ++v) acc[v] = fmaf(x[v], a[i][v], acc[v]);
-    }
-    return ((acc[0] + acc[1]) + (acc[2] + acc[3])) +
-           ((acc[4] + acc[5]) + (acc[6] + acc[7]));
-  };
-  walk(kb, c8, t, sm, [&](int st, const uint4* slot) {
+    __syncthreads();
     const int oa = sm.ostart[st], ob = sm.ostart[st + 1];
-    const int na = oa / G, nb = (ob - 1) / G, h0 = st * kR;
-    auto valid = [&](int nl, int o) {
-      return g < t.gq && nl <= nb && nl < t.nn && o >= oa && o < ob;
-    };
-    // two samples at a time, nl and nl + 1; the loop bounds are the same
-    // for the whole block. An invalid pair reads the stage's first row and
-    // is not stored. One butterfly sums both samples: after its first step
-    // lanes 0-7 hold sample A's sums and lanes 8-15 B's.
-    for (int nl = na; nl <= nb; nl += 2) {
-      const int oA = nl * G + g, oB = oA + G;
-      const bool vA = valid(nl, oA), vB = valid(nl + 1, oB);
-      const int hA = vA ? sm.pk[oA].x : h0, hB = vB ? sm.pk[oB].x : h0;
-      const float sA = dot(slot, hA - h0), sB = dot(slot, hB - h0);
-      const bool hi = lane & (kLanes / 2);
-      float s = (hi ? sB : sA) +
-                __shfl_xor_sync(0xffffffffu, hi ? sA : sB, kLanes / 2);
-#pragma unroll
-      for (int d = kLanes / 4; d > 0; d >>= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, d);
-      if (lane == 0 && vA)
-        sm.pk[oA].y = __float_as_int(expf(s * inv_temp - inv_temp));
-      if (lane == kLanes / 2 && vB)
-        sm.pk[oB].y = __float_as_int(expf(s * inv_temp - inv_temp));
+    for (int o = oa + threadIdx.x; o < ob; o += kThreads) {
+      const int nl = o / G, gg = o % G;
+      if (gg < t.gq && nl < t.nn) {
+        const float* sp = sm.spart + (sm.head[o] - h0) * G + gg;
+        float s = 0.f;
+        for (int p = 0; p < L.kp; ++p) s += sp[(size_t)p * L.rows * G];
+        sm.val[o] = expf(s * inv_temp - inv_temp);
+      }
     }
   });
 
@@ -343,20 +480,22 @@ infonce_fwd_kernel(const __nv_bfloat16* __restrict__ anchors,  // [K,Q,C]
   for (int i = threadIdx.x; i < L.P; i += kThreads) {
     const int gg = i / L.chunk, nl = i - gg * L.chunk;
     if (gg < t.gq && nl < t.nn)
-      e[(qbase + gg) * N + t.n0 + nl] = __int_as_float(sm.pk[nl * G + gg].y);
+      e[(qbase + gg) * N + t.n0 + nl] = sm.val[nl * G + gg];
   }
-  const int warp = threadIdx.x >> 5, wl = threadIdx.x & 31;
   for (int gg = warp; gg < t.gq; gg += kWarps) {
     float sum = 0.f;
-    for (int nl = wl; nl < t.nn; nl += 32)
-      sum += __int_as_float(sm.pk[nl * G + gg].y);
+    for (int nl = lane; nl < t.nn; nl += 32) sum += sm.val[nl * G + gg];
     sum = warp_sum(sum);
-    if (wl == 0) dpart[((long long)t.k * kS + t.s) * Q + t.q0 + gg] = sum;
+    if (lane == 0) dpart[((long long)t.k * S + t.s) * Q + t.q0 + gg] = sum;
   }
 }
 
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-infonce_bwd_kernel(const float* __restrict__ e,                // [K,Q,N]
+// NP: the most n8-tile pairs a warp holds (1, 2 or 4), which sizes the
+// accumulators and so the registers.
+template <int NP>
+__global__ void __launch_bounds__(kThreads, max_blocks(false, NP))
+infonce_bwd_kernel(const Layout L,
+                   const float* __restrict__ e,                // [K,Q,N]
                    const __nv_bfloat16* __restrict__ bank,     // [K,cap,C]
                    const int32_t* __restrict__ neg_idx,        // [K,Q,N]
                    const float* __restrict__ invtot,           // [K,Q]
@@ -364,79 +503,119 @@ infonce_bwd_kernel(const float* __restrict__ e,                // [K,Q,N]
                    int Q, int N, int C, long long cap) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int G = kG;
-  const Layout L(N, C);
+  const int S = gridDim.y;
   const Smem sm(smem, L);
-  const int c8 = L.c8;
   Tile t = tile_of(Q, N, L);
 
   const long long qbase = (long long)t.k * Q + t.q0;
   for (int i = threadIdx.x; i < L.P; i += kThreads) {
     const int gg = i / L.chunk, nl = i - gg * L.chunk;
-    sm.pk[nl * G + gg].y = __float_as_int(
+    sm.val[nl * G + gg] =
         (gg < t.gq && nl < t.nn)
             ? e[(qbase + gg) * N + t.n0 + nl] * invtot[qbase + gg]
-            : 0.f);
+            : 0.f;
   }
+  zero_pad(L, sm);
   plan_tile(neg_idx, Q, N, L, sm, t);
 
-  // thread i owns the output chunks p = i + m * kThreads of the [G, c8]
-  // tile (G * c8 <= kMaxOwn * kThreads, checked by arco_infonce_smem)
-  int own_g[kMaxOwn], own_j[kMaxOwn];
-  float acc[kMaxOwn][8];
+  // warp: n8-tile pairs npl, npl + npw, ... (channels 16 np .. 16 np + 15)
+  // over the k-steps kpart, kpart + kpb, ... of every stage
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int npl = warp % L.npw, kpart = warp / L.npw;
+  // B (.trans): lane l addresses staged row (l & 7) + 8 ((l >> 3) & 1) of
+  // the k-step at chunk l >> 4 of the pair (k lo / hi of n8 tile 0, then 1)
+  const int b_off = ((lane & 7) + 8 * ((lane >> 3) & 1)) * L.stride +
+                    2 * npl + (lane >> 4);
+  float acc[NP][2][4];
 #pragma unroll
-  for (int m = 0; m < kMaxOwn; ++m) {
-    const int p = threadIdx.x + m * kThreads;
-    own_g[m] = p / c8;
-    own_j[m] = p - own_g[m] * c8;
+  for (int i = 0; i < NP; ++i)
 #pragma unroll
-    for (int v = 0; v < 8; ++v) acc[m][v] = 0.f;
-  }
+    for (int v = 0; v < 4; ++v) acc[i][0][v] = acc[i][1][v] = 0.f;
+
   const __nv_bfloat16* kb = bank + (long long)t.k * cap * C;
-  walk(kb, c8, t, sm, [&](int st, const uint4* slot) {
-    const int oa = sm.ostart[st], ob = sm.ostart[st + 1];
-    const int na = oa / G, nb = min((ob - 1) / G, t.nn - 1);
-    // the stage's samples nl in [lo[m], hi[m]] for query own_g[m]
-    int lo[kMaxOwn], hi[kMaxOwn];
-#pragma unroll
-    for (int m = 0; m < kMaxOwn; ++m) {
-      const int g = own_g[m];
-      lo[m] = na + (na * G + g < oa);
-      hi[m] = g < t.gq ? nb - (nb * G + g >= ob) : na - 1;
+  // A (W, row-major [G][wstride]): lane l addresses query (l & 7) +
+  // 8 ((l >> 3) & 1) at column 8 (l >> 4) of the k-step
+  const int a_off = ((lane & 7) + 8 * ((lane >> 3) & 1)) * L.wstride +
+                    8 * (lane >> 4);
+  walk(kb, L, t, sm, [&](int st, const uint4* slot) {
+    const int h0 = st * L.rows;
+    const int nr = imin(L.rows, t.heads - h0);
+    const int ksteps = (nr + 15) >> 4;
+    // W[g][r] = the weight of query g's pair that reads staged row r, or 0,
+    // up to the stage's last k-step, split into bf16 hi + lo
+    for (int i = threadIdx.x; i < ksteps * 16 * G; i += kThreads) {
+      const int r = i / G, gg = i % G;
+      float w = 0.f;
+      if (r < nr) {
+        const int h = h0 + r;
+        const int o = (sm.heads[h] / G) * G + gg;   // query gg, head's n
+        if (sm.head[o] == h) w = sm.val[o];
+      }
+      const __nv_bfloat16 hi = __float2bfloat16_rn(w);
+      sm.whi[gg * L.wstride + r] = hi;
+      sm.wlo[gg * L.wstride + r] =
+          __float2bfloat16_rn(w - __bfloat162float(hi));
     }
-    // A pair outside the stage weighs 0 and reads the stage's first row
-    // (real data), so the loads are not behind a branch and overlap.
-    const int h0 = st * kR;
-#pragma unroll 2
-    for (int nl = na; nl <= nb; ++nl) {
-      int2 pw[kMaxOwn];
-      uint4 raw[kMaxOwn];
+    __syncthreads();
+    for (int kk = kpart; kk < ksteps; kk += L.kpb) {
+      uint32_t ahi[4], alo[4];
+      ldsm_x4(ahi, sm.whi + a_off + 16 * kk);
+      ldsm_x4(alo, sm.wlo + a_off + 16 * kk);
+      const uint4* brow = slot + 16 * kk * L.stride + b_off;
 #pragma unroll
-      for (int m = 0; m < kMaxOwn; ++m)
-        pw[m] = nl >= lo[m] && nl <= hi[m] ? sm.pk[nl * G + own_g[m]]
-                                          : make_int2(h0, 0);
-#pragma unroll
-      for (int m = 0; m < kMaxOwn; ++m)
-        raw[m] = slot[(pw[m].x - h0) * c8 + own_j[m]];
-#pragma unroll
-      for (int m = 0; m < kMaxOwn; ++m) {
-        const float w = __int_as_float(pw[m].y);
-        float x[8];
-        unpack8(raw[m], x);
-#pragma unroll
-        for (int v = 0; v < 8; ++v) acc[m][v] = fmaf(w, x[v], acc[m][v]);
+      for (int i = 0; i < NP; ++i) {
+        if (npl + i * L.npw < L.ks) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, brow + 2 * i * L.npw);
+          mma16816(acc[i][0], ahi, b[0], b[1]);
+          mma16816(acc[i][0], alo, b[0], b[1]);
+          mma16816(acc[i][1], ahi, b[2], b[3]);
+          mma16816(acc[i][1], alo, b[2], b[3]);
+        }
       }
     }
   });
 
-#pragma unroll
-  for (int m = 0; m < kMaxOwn; ++m) {
-    if (own_g[m] < t.gq) {
-      float4* out = reinterpret_cast<float4*>(
-          gpart + (((long long)t.k * kS + t.s) * Q + t.q0 + own_g[m]) * C +
-          8 * own_j[m]);
-      out[0] = make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
-      out[1] = make_float4(acc[m][4], acc[m][5], acc[m][6], acc[m][7]);
+  // k-split partials (C <= 112: one pair a warp), summed in kpart order in
+  // the ring, which the walk no longer uses
+  if (L.kpb > 1) {
+    float* red = reinterpret_cast<float*>(sm.ring);
+    float* mine = red + ((kpart * L.npw + npl) * 32 + lane) * 8;
+    if (kpart > 0) {
+      reinterpret_cast<float4*>(mine)[0] =
+          make_float4(acc[0][0][0], acc[0][0][1], acc[0][0][2], acc[0][0][3]);
+      reinterpret_cast<float4*>(mine)[1] =
+          make_float4(acc[0][1][0], acc[0][1][1], acc[0][1][2], acc[0][1][3]);
     }
+    __syncthreads();
+    if (kpart == 0)
+      for (int p = 1; p < L.kpb; ++p) {
+        const float* other = mine + p * L.npw * 32 * 8;
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          acc[0][0][v] += other[v];
+          acc[0][1][v] += other[4 + v];
+        }
+      }
+  }
+  if (kpart == 0) {
+    float* out = gpart + (((long long)t.k * S + t.s) * Q + t.q0) * C;
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int tile = 2 * (npl + i * L.npw) + nt;
+        if (tile < L.c8) {
+          const int col = 8 * tile + 2 * tq;
+          if (g < t.gq)
+            *reinterpret_cast<float2*>(out + (long long)g * C + col) =
+                make_float2(acc[i][nt][0], acc[i][nt][1]);
+          if (g + 8 < t.gq)
+            *reinterpret_cast<float2*>(out + (long long)(g + 8) * C + col) =
+                make_float2(acc[i][nt][2], acc[i][nt][3]);
+        }
+      }
   }
 }
 
@@ -473,62 +652,102 @@ cudaError_t allow_smem(const void* kernel, bool* done) {
   return err;
 }
 
-bool fwd_smem_set[kMaxDevices], bwd_smem_set[kMaxDevices];
+bool fwd_smem_set[kMaxDevices], bwd_smem_set[3][kMaxDevices];
+
+// Launch the backward instance for L.pairs n8-tile pairs a warp.
+template <int NP>
+cudaError_t launch_bwd(const Layout& L, dim3 grid, cudaStream_t stream,
+                       bool* smem_set, const float* e,
+                       const __nv_bfloat16* bank, const int32_t* neg_idx,
+                       const float* invtot, float* gpart, int Q, int N, int C,
+                       long long cap) {
+  cudaError_t err = allow_smem((const void*)infonce_bwd_kernel<NP>, smem_set);
+  if (err != cudaSuccess) return err;
+  infonce_bwd_kernel<NP><<<grid, kThreads, L.bytes, stream>>>(
+      L, e, bank, neg_idx, invtot, gpart, Q, N, C, cap);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
 extern "C" {
 
-// Queries per block and chunks of the samples: the partials hold
-// K * splits * Q floats (fwd) and K * splits * Q * C floats (bwd).
+// Queries per block.
 int arco_infonce_group() { return kG; }
-int arco_infonce_splits() { return kS; }
 
-// Dynamic shared memory of one block of either kernel, or 0 for a shape
-// they do not take: C a multiple of 8 with C / 8 <= kLanes * kMaxJ and
-// kG * C / 8 <= kMaxOwn * kThreads, at most 32767 pairs per tile, and at
-// most kSmemMax bytes.
+// Chunks of the samples: 4, doubled (up to 16, while a chunk keeps at
+// least kMinChunk samples) until the grid has a block for each SM. The
+// partials hold K * splits * Q floats (fwd) and K * splits * Q * C floats
+// (bwd).
+int arco_infonce_splits(int K, int Q, int N, int C) {
+  (void)C;
+  const long long groups = (long long)K * ((Q + kG - 1) / kG);
+  int S = kMinSplits;
+  while (S < kMaxSplits && groups * S < kSms &&
+         (N + 2 * S - 1) / (2 * S) >= kMinChunk)
+    S *= 2;
+  return S;
+}
+
+// Rows a stage of the forward (fwd != 0) or the backward kernel stages at
+// this shape.
+int arco_infonce_rows(int K, int Q, int N, int C, int fwd) {
+  return Layout(N, C, arco_infonce_splits(K, Q, N, C), fwd != 0).rows;
+}
+
+// Dynamic shared memory of a block of either kernel at the fewest splits,
+// or 0 for a shape they do not take: C a multiple of 8 up to 512, at most
+// 32767 pairs per tile, and at most kSmemMax bytes (more splits only make
+// the tile smaller).
 size_t arco_infonce_smem(int N, int C) {
-  if (N < 1 || C < 8 || C % 8 || C / 8 > kLanes * kMaxJ ||
-      kG * (C / 8) > kMaxOwn * kThreads)
-    return 0;
-  const Layout L(N, C);
-  return L.P > 32767 || L.bytes > kSmemMax ? 0 : L.bytes;
+  if (N < 1 || C < 8 || C % 8 || C > kMaxC) return 0;
+  const Layout f(N, C, kMinSplits, true), b(N, C, kMinSplits, false);
+  if (f.P > 32767 || f.bytes > kSmemMax || b.bytes > kSmemMax) return 0;
+  return f.bytes > b.bytes ? f.bytes : b.bytes;
 }
 
 int arco_infonce_fwd(const void* anchors, const void* bank,
                      const void* neg_idx, void* e, void* dpart, void* denom,
                      int K, int Q, int N, int C, long long cap,
                      float inv_temp, void* stream) {
-  const size_t smem = arco_infonce_smem(N, C);
-  if (!smem) return (int)cudaErrorInvalidValue;
+  if (!arco_infonce_smem(N, C)) return (int)cudaErrorInvalidValue;
+  const int S = arco_infonce_splits(K, Q, N, C);
+  const Layout L(N, C, S, true);
   cudaError_t err = allow_smem((const void*)infonce_fwd_kernel, fwd_smem_set);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Q + kG - 1) / kG, kS, K);
-  infonce_fwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)anchors, (const __nv_bfloat16*)bank,
+  const dim3 grid((Q + kG - 1) / kG, S, K);
+  infonce_fwd_kernel<<<grid, kThreads, L.bytes, (cudaStream_t)stream>>>(
+      L, (const __nv_bfloat16*)anchors, (const __nv_bfloat16*)bank,
       (const int32_t*)neg_idx, (float*)e, (float*)dpart, Q, N, C, cap,
       inv_temp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return sum_splits((const float*)dpart, (float*)denom, kS, Q,
+  return sum_splits((const float*)dpart, (float*)denom, S, Q,
                     (long long)K * Q, (cudaStream_t)stream);
 }
 
 int arco_infonce_bwd(const void* e, const void* bank, const void* neg_idx,
                      const void* invtot, void* gpart, void* ga, int K, int Q,
                      int N, int C, long long cap, void* stream) {
-  const size_t smem = arco_infonce_smem(N, C);
-  if (!smem) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem((const void*)infonce_bwd_kernel, bwd_smem_set);
+  if (!arco_infonce_smem(N, C)) return (int)cudaErrorInvalidValue;
+  const int S = arco_infonce_splits(K, Q, N, C);
+  const Layout L(N, C, S, false);
+  const dim3 grid((Q + kG - 1) / kG, S, K);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const float* ef = (const float*)e;
+  const __nv_bfloat16* kb = (const __nv_bfloat16*)bank;
+  const int32_t* ib = (const int32_t*)neg_idx;
+  const float* it = (const float*)invtot;
+  float* gp = (float*)gpart;
+  const cudaError_t err =
+      L.pairs == 1 ? launch_bwd<1>(L, grid, st, bwd_smem_set[0], ef, kb, ib,
+                                   it, gp, Q, N, C, cap)
+      : L.pairs == 2 ? launch_bwd<2>(L, grid, st, bwd_smem_set[1], ef, kb,
+                                     ib, it, gp, Q, N, C, cap)
+                     : launch_bwd<4>(L, grid, st, bwd_smem_set[2], ef, kb,
+                                     ib, it, gp, Q, N, C, cap);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Q + kG - 1) / kG, kS, K);
-  infonce_bwd_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)e, (const __nv_bfloat16*)bank, (const int32_t*)neg_idx,
-      (const float*)invtot, (float*)gpart, Q, N, C, cap);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return sum_splits((const float*)gpart, (float*)ga, kS, (long long)Q * C,
+  return sum_splits((const float*)gpart, (float*)ga, S, (long long)Q * C,
                     (long long)K * Q * C, (cudaStream_t)stream);
 }
 

@@ -70,13 +70,13 @@ def _check_bank(bank, neg_idx, k, q, c):
 
 
 @functools.cache
-def _splits(n, c):
-    """The kernels' chunks of the samples, each with its own partials, after
-    checking that they take N samples of C channels."""
+def _splits(k, q, n, c):
+    """The kernels' chunks of the samples at this shape, each with its own
+    partials, after checking that they take N samples of C channels."""
     lib = build.load_library()
     if not lib.arco_infonce_smem(n, c):
         raise ValueError(f"the infonce kernels do not take N={n}, C={c}")
-    return lib.arco_infonce_splits()
+    return lib.arco_infonce_splits(k, q, n, c)
 
 
 def infonce_fwd(a_n, bank, neg_idx, inv_temp: float):
@@ -91,7 +91,7 @@ def infonce_fwd(a_n, bank, neg_idx, inv_temp: float):
     k, q, c = a_n.shape
     _check_bank(bank, neg_idx, k, q, c)
     n = neg_idx.shape[2]
-    s = _splits(n, c)
+    s = _splits(k, q, n, c)
     f32 = dict(dtype=torch.float32, device=a_n.device)
     denom = torch.empty((k, q), **f32)
     e = torch.empty((k, q, n), **f32)
@@ -119,7 +119,7 @@ def infonce_bwd(e, bank, neg_idx, invtot):
     if neg_idx.shape != e.shape or invtot.shape != (k, q):
         raise ValueError(f"neg_idx {tuple(neg_idx.shape)} and invtot "
                          f"{tuple(invtot.shape)} for e {tuple(e.shape)}")
-    s = _splits(n, c)
+    s = _splits(k, q, n, c)
     f32 = dict(dtype=torch.float32, device=e.device)
     ga = torch.empty((k, q, c), **f32)
     gpart = torch.empty((k, s, q, c), **f32)

@@ -344,6 +344,25 @@ def _staged_rows(neg_idx):
     return int(new.sum())
 
 
+def _infonce_bounds(a_n, neg_idx):
+    """The row counts of one draw, and each InfoNCE kernel's bound
+    (_bound_ms): each distinct sampled row read once, the small tensors
+    (anchors, indices, e, invtot, the outputs) once, 2 K Q N C flops."""
+    import torch
+    k, q, c = a_n.shape
+    n = neg_idx.shape[2]
+    distinct = sum(int(torch.unique(neg_idx[i]).numel()) for i in range(k))
+    rows = {"rows_distinct": distinct, "rows_fetched": _staged_rows(neg_idx)}
+    row_bytes = c * 2
+    small = neg_idx.numel() * 4 + k * q * n * 4          # indices and e
+    fwd_bytes = distinct * row_bytes + a_n.numel() * 2 + small + k * q * 4
+    bwd_bytes = (distinct * row_bytes + small + k * q * 4
+                 + k * q * c * 4)
+    ops = 2 * k * q * n * c
+    return rows, {"infonce_fwd": _bound_ms(fwd_bytes, ops),
+                  "infonce_bwd": _bound_ms(bwd_bytes, ops)}
+
+
 def _infonce_at(a_n, p_n, bank, neg_idx):
     """Both InfoNCE kernels at one draw of neg_idx: each against its plain
     version (rtol 1e-3: the same bf16 products summed in f32 in another
@@ -391,28 +410,18 @@ def _infonce_at(a_n, p_n, bank, neg_idx):
                                    atol=1e-2 * w.float().abs().max().item())
     del denom_ref, e_ref, ga_ref, got, want
 
-    # the bounds: each distinct row read once, the small tensors once
-    k, q, c = a_n.shape
-    distinct = sum(int(torch.unique(neg_idx[i]).numel()) for i in range(k))
-    rows = {"rows_distinct": distinct, "rows_fetched": _staged_rows(neg_idx)}
-    row_bytes = c * 2
-    small = neg_idx.numel() * 4 + e.numel() * 4
-    fwd_bytes = (distinct * row_bytes + a_n.numel() * 2 + small
-                 + denom.numel() * 4)
-    bwd_bytes = (distinct * row_bytes + small + invtot.numel() * 4
-                 + ga.numel() * 4)
-    ops = 2 * k * q * neg_idx.shape[2] * c
+    rows, bounds = _infonce_bounds(a_n, neg_idx)
     out = {}
-    for name, fn, plain, n_bytes, n_ops, max_err in (
+    for name, fn, plain, max_err in (
             ("infonce_fwd",
              lambda: infonce.infonce_fwd(a_n, bank, neg_idx, it),
              lambda: infonce.infonce_denom_plain(a_n, bank, neg_idx, it),
-             fwd_bytes, ops, err),
+             err),
             ("infonce_bwd",
              lambda: infonce.infonce_bwd(e, bank, neg_idx, invtot),
              lambda: infonce.infonce_grad_plain(e, bank, neg_idx, invtot),
-             bwd_bytes, ops, err_g)):
-        bound, by = _bound_ms(n_bytes, n_ops)
+             err_g)):
+        bound, by = bounds[name]
         out[name] = {"max_abs_err": max_err, "ms": _time_ms(fn, 50),
                      "device_ms": _device_ms(fn, 50),
                      "plain_ms": _time_ms(plain, 5), "bound_ms": bound,

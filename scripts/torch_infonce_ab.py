@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Time the InfoNCE kernel pair of several checkouts of the PyTorch port on
-one CUDA GPU, at the main path's shapes and the three draws of
-``chip_smoke.py`` phase 3 (uniform, 'smc', 'asmc'), over full banks.
+one CUDA GPU, at the four shapes ``chip_smoke.py`` holds it at, over full
+banks: the 2D path (K 4, C 496; uniform, 'smc' and 'asmc' draws, phase 3),
+the 3D path (K 2, C 16, phase 8a) and the natural path (K 21, C 256 and
+C 496, phase 12a), each at the main path's 'smc' draws.
 
     python3 scripts/torch_infonce_ab.py ROOT [ROOT ...]
 
@@ -14,12 +16,16 @@ backward recomputes the similarities from the anchors
 returning denom) and the one whose backward reads the forward's e
 (``infonce_bwd(e, bank, neg_idx, invtot)``, ``infonce_fwd`` returning
 (denom, e)). Each result is held against a plain gather + einsum computed
-here (rtol 1e-3). Per root, kernel and draw it prints one JSON line:
+here (rtol 1e-3). Per root, shape, draw and kernel it prints one JSON line:
 "ms" is one call between two CUDA events (the host's work before the
 launch included) and "device_ms" the device's time per call (calls queued
 behind a GPU sleep), both as ``chip_smoke.py`` takes them; "host_ms" is
 the host's time per call, from entering the wrapper to its return, while
-the device works behind. A table of all roots follows.
+the device works behind; "bound_ms" and "bound_by" are
+``chip_smoke.py:_infonce_bounds``'s, "share" is bound_ms / device_ms;
+"grids" is the device time per call of each CUDA kernel the call runs,
+from ``torch.profiler`` (null where it records none). A table of all roots
+follows, under the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -52,12 +58,45 @@ def host_ms(fn, reps=100):
     return statistics.median(times)
 
 
-def run_one(root: Path):
+def grid_ms(fn, reps=20):
+    """{CUDA kernel name: device ms per call} over ``reps`` calls under
+    torch.profiler, or None where it records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    except RuntimeError:       # no CUPTI: the timings stand without it
+        return None
+    out = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", 0) or 0
+        if t > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            out[ev.key[:60]] = t / 1e3 / reps
+    return out or None
+
+
+def shapes(cs):
+    """name -> (bank capacities, C, draws, generator seed)"""
+    return {"2d": (cs.CAPS, cs.C, ("uniform", "smc", "asmc"), 0),
+            "3d": (cs.CAPS_3D, cs.C_3D, (cs.MAIN_DRAW,), 4),
+            "natural_c256": (cs.NAT_CAPS, cs.NAT_C, (cs.MAIN_DRAW,), 12),
+            "natural_c496": (cs.NAT_CAPS, cs.C, (cs.MAIN_DRAW,), 12)}
+
+
+def run_one(root: Path, check: bool = True, only_main_draw: bool = False):
+    """Time root's pair at every shape; ``check=False`` skips the results'
+    check against the plain einsums (for variants that compute wrong
+    results on purpose), ``only_main_draw`` times the 'smc' draws alone."""
     sys.path.insert(0, str(root))
     import torch
     from arco_torch.kernels import infonce
-    # this checkout's chip_smoke.py (the inputs and timers), whose lazy
-    # imports of arco_torch then resolve to root's
+    # this checkout's chip_smoke.py (the inputs, timers and bounds), whose
+    # lazy imports of arco_torch then resolve to root's
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   REPO / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
@@ -66,43 +105,54 @@ def run_one(root: Path):
         raise RuntimeError(f"imported {infonce.__file__}, not from {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda")
-    gen = torch.Generator(device=device).manual_seed(0)
-    a_n, p_n, bank, draws = cs._infonce_inputs(
-        gen, device, cs.CAPS, cs.C, ("uniform", "smc", "asmc"))
     it = 1.0 / cs.TEMP
-    pos = (a_n.float() * p_n.float()[:, None]).sum(-1) * it
     reads_e = next(iter(inspect.signature(infonce.infonce_bwd)
                         .parameters)) == "e"
-    k = torch.arange(len(cs.CAPS), device=device)[:, None, None]
-    for func, idx in draws.items():
-        rows = bank[k, idx.long()].float()
-        e = torch.exp(torch.einsum("kqc,kqnc->kqn", a_n.float(), rows) * it
-                      - it)
-        denom = e.sum(-1)
-        invtot = 1.0 / (torch.exp(pos - it) + denom)
-        ga = torch.einsum("kqn,kqnc->kqc", e * invtot[..., None], rows)
-        del rows
-        if reads_e:
-            def fwd():
-                return infonce.infonce_fwd(a_n, bank, idx, it)[0]
+    for shape, (caps, c, funcs, seed) in shapes(cs).items():
+        if only_main_draw:
+            funcs = (cs.MAIN_DRAW,)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        a_n, p_n, bank, draws = cs._infonce_inputs(gen, device, caps, c,
+                                                   funcs)
+        pos = (a_n.float() * p_n.float()[:, None]).sum(-1) * it
+        k = torch.arange(len(caps), device=device)[:, None, None]
+        for func, idx in draws.items():
+            rows = bank[k, idx.long()].float()
+            e = torch.exp(torch.einsum("kqc,kqnc->kqn", a_n.float(), rows)
+                          * it - it)
+            denom = e.sum(-1)
+            invtot = 1.0 / (torch.exp(pos - it) + denom)
+            ga = torch.einsum("kqn,kqnc->kqc", e * invtot[..., None], rows)
+            del rows
+            if reads_e:
+                def fwd():
+                    return infonce.infonce_fwd(a_n, bank, idx, it)[0]
 
-            def bwd():
-                return infonce.infonce_bwd(e, bank, idx, invtot)
-        else:
-            def fwd():
-                return infonce.infonce_fwd(a_n, bank, idx, it)
+                def bwd():
+                    return infonce.infonce_bwd(e, bank, idx, invtot)
+            else:
+                def fwd():
+                    return infonce.infonce_fwd(a_n, bank, idx, it)
 
-            def bwd():
-                return infonce.infonce_bwd(a_n, bank, idx, invtot, it)
-        torch.testing.assert_close(fwd(), denom, rtol=1e-3, atol=0)
-        torch.testing.assert_close(bwd(), ga, rtol=1e-3,
-                                   atol=1e-3 * ga.abs().max().item())
-        for name, fn in (("infonce_fwd", fwd), ("infonce_bwd", bwd)):
-            print(json.dumps({"root": str(root), "kernel": name,
-                              "draw": func, "ms": cs._time_ms(fn, 50),
-                              "device_ms": cs._device_ms(fn, 50),
-                              "host_ms": host_ms(fn)}),
-                  flush=True)
+                def bwd():
+                    return infonce.infonce_bwd(a_n, bank, idx, invtot, it)
+            if check:
+                torch.testing.assert_close(fwd(), denom, rtol=1e-3, atol=0)
+                torch.testing.assert_close(bwd(), ga, rtol=1e-3,
+                                           atol=1e-3 * ga.abs().max().item())
+            _, bounds = cs._infonce_bounds(a_n, idx)
+            for name, fn in (("infonce_fwd", fwd), ("infonce_bwd", bwd)):
+                device_ms = cs._device_ms(fn, 50)
+                bound, by = bounds[name]
+                print(json.dumps({
+                    "root": str(root), "shape": shape, "kernel": name,
+                    "draw": func, "ms": cs._time_ms(fn, 50),
+                    "device_ms": device_ms, "host_ms": host_ms(fn),
+                    "bound_ms": bound, "bound_by": by,
+                    "share": bound / device_ms, "grids": grid_ms(fn)}),
+                    flush=True)
+        del a_n, p_n, bank, draws, e, invtot, ga
+        torch.cuda.empty_cache()
 
 
 def main(argv):
@@ -112,24 +162,28 @@ def main(argv):
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
-    print(subprocess.run(
+    card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip(), flush=True)
+        check=True, timeout=60).stdout.strip()
+    print(card, flush=True)
     rows = []
     for i, root in enumerate(argv):
         out = subprocess.run([sys.executable, __file__, "--one", root],
                              stdout=subprocess.PIPE, text=True, check=True,
-                             timeout=600).stdout
+                             timeout=900).stdout
         for line in out.splitlines():
             if line.startswith("{"):
                 print(line, flush=True)
                 rows.append((i, json.loads(line)))
-    print("run  root  kernel  draw  ms  device_ms  host_ms")
-    for i, r in sorted(rows, key=lambda x: (x[1]["kernel"], x[1]["draw"],
-                                            x[0])):
-        print(f"{i} {r['root']} {r['kernel']} {r['draw']} {r['ms']:.4f} "
-              f"{r['device_ms']:.4f} {r['host_ms']:.4f}")
+    print(card)
+    print("run  root  shape  kernel  draw  ms  device_ms  host_ms  "
+          "bound_ms  share")
+    for i, r in sorted(rows, key=lambda x: (x[1]["shape"], x[1]["draw"],
+                                            x[1]["kernel"], x[0])):
+        print(f"{i} {r['root']} {r['shape']} {r['kernel']} {r['draw']} "
+              f"{r['ms']:.4f} {r['device_ms']:.4f} {r['host_ms']:.4f} "
+              f"{r['bound_ms']:.4f} {r['share']:.2f}")
     return 0
 
 

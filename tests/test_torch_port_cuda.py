@@ -56,17 +56,17 @@ def _normalized(shape, gen, device):
     return torch.nn.functional.normalize(x, dim=-1).to(torch.bfloat16)
 
 
-def _infonce_inputs(device, func="uniform", q=Q, n=N):
+def _infonce_inputs(device, func="uniform", q=Q, n=N, k=K, c=C, cap=CAP):
     """Normalized anchors, prototypes and bank; neg_idx drawn as the
     contrastive loss draws it: neg_idx[k, i, j] = rank[k, j * q + i]."""
     gen = torch.Generator(device=device).manual_seed(0)
-    a_n = _normalized((K, q, C), gen, device)
-    p_n = _normalized((K, C), gen, device)
-    bank = _normalized((K, CAP, C), gen, device)
-    ranks = sampling.draw_indices(torch.full((K,), CAP, device=device),
+    a_n = _normalized((k, q, c), gen, device)
+    p_n = _normalized((k, c), gen, device)
+    bank = _normalized((k, cap, c), gen, device)
+    ranks = sampling.draw_indices(torch.full((k,), cap, device=device),
                                   q * n, func=func, generator=gen,
                                   device=device)
-    idx = ranks.reshape(K, n, q).transpose(1, 2).to(torch.int32).contiguous()
+    idx = ranks.reshape(k, n, q).transpose(1, 2).to(torch.int32).contiguous()
     return a_n, p_n, bank, idx
 
 
@@ -136,6 +136,99 @@ def test_infonce_pair_is_bit_identical(cuda):
     """The S partials are summed in a fixed order: two launches agree bit
     for bit."""
     a_n, _, bank, idx = _infonce_inputs(cuda, "smc")
+    denom, e, ga, invtot = _pair_against_plain(a_n, bank, idx)
+    denom2, e2 = infonce.infonce_fwd(a_n, bank, idx, 1 / T)
+    ga2 = infonce.infonce_bwd(e2, bank, idx, invtot)
+    assert torch.equal(denom, denom2) and torch.equal(e, e2) \
+        and torch.equal(ga, ga2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 21])
+@pytest.mark.parametrize("c", [8, 16, 24, 256, 496, 512])
+def test_infonce_pair_at_each_width_and_class_count(cuda, c, k):
+    """'smc' draws at Q = 40 and N = 61 (ragged against the 16-query groups
+    and the sample chunks): C = 8 and 24 pad the last k-step, C = 16 is
+    one k-step, 512 the widest; one class and two split the samples into
+    more chunks than 21 classes."""
+    a_n, _, bank, idx = _infonce_inputs(cuda, "smc", 40, 61, k=k, c=c)
+    _pair_against_plain(a_n, bank, idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("func", ["uniform", "asmc"])
+@pytest.mark.parametrize("c", [16, 24, 256])
+def test_infonce_pair_at_other_draws_and_widths(cuda, c, func):
+    a_n, _, bank, idx = _infonce_inputs(cuda, func, 40, 61, k=2, c=c)
+    _pair_against_plain(a_n, bank, idx)
+
+
+def _staged_heads_idx(k, q, n, c, heads, cap, seed=0):
+    """neg_idx [k, q, n] whose every block stages ``heads`` rows (as many
+    as its queries and samples allow, at least one a sample): at each
+    sample the group's queries fall into runs of one fresh row each."""
+    from arco_torch.kernels import build
+    lib = build.load_library()
+    g = lib.arco_infonce_group()
+    chunk = -(-n // lib.arco_infonce_splits(k, q, n, c))
+    rows = np.random.RandomState(seed).permutation(cap)
+    idx = np.empty((k, q, n), np.int32)
+    fresh = 0
+    for kk in range(k):
+        for q0 in range(0, q, g):
+            gq = min(g, q - q0)
+            for n0 in range(0, n, chunk):
+                nn = min(chunk, n - n0)
+                extra = min(heads, gq * nn) - nn
+                for nl in range(nn):
+                    runs = 1 + min(gq - 1, max(extra, 0))
+                    extra -= runs - 1
+                    cuts = np.linspace(0, gq, runs + 1).astype(int)
+                    for a, b in zip(cuts[:-1], cuts[1:]):
+                        idx[kk, q0 + a:q0 + b, n0 + nl] = rows[fresh % cap]
+                        fresh += 1
+    return idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("off", [-1, 1], ids=["short", "over"])
+@pytest.mark.parametrize("fwd", [1, 0], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("c,n", [(16, 1100), (24, 1100), (256, 61),
+                                 (496, 61)])
+def test_infonce_pair_at_a_stage_edge(cuda, c, n, fwd, off):
+    """Every block stages one row fewer than a stage of the forward (or the
+    backward) kernel holds (its one stage short of full) or one more (a
+    second stage of a single row), at widths whose stages hold hundreds of
+    rows (C 16, 24) and tens (C 256, 496)."""
+    from arco_torch.kernels import build
+    k, q = 2, 40
+    rows = build.load_library().arco_infonce_rows(k, q, n, c, fwd)
+    a_n, _, bank, _ = _infonce_inputs(cuda, "smc", q, n, k=k, c=c)
+    idx = torch.from_numpy(
+        _staged_heads_idx(k, q, n, c, rows + off, CAP)).to(cuda)
+    _pair_against_plain(a_n, bank, idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [16, 496])
+def test_infonce_pair_query_draws_a_row_at_several_n(cuda, c):
+    """Each query draws its own row at every third n: the weights of one
+    bank row add over the samples (and no two neighbouring queries share a
+    row, so every pair is a run head)."""
+    a_n, _, bank, _ = _infonce_inputs(cuda, "smc", 40, 61, k=2, c=c)
+    q = torch.arange(40, device=cuda)[:, None]
+    n = torch.arange(61, device=cuda)[None, :]
+    idx = ((q * 7 + n % 3) % CAP).to(torch.int32).expand(2, 40, 61)
+    _pair_against_plain(a_n, bank, idx.contiguous())
+
+
+@pytest.mark.cuda
+def test_infonce_pair_is_bit_identical_at_the_natural_shape(cuda):
+    """21 classes of 256 anchors x 512 'smc' negatives of 256-channel rows
+    over full 30000-row banks: against the plain pair, and two launches
+    agree bit for bit."""
+    a_n, _, bank, idx = _infonce_inputs(cuda, "smc", 256, 512, k=21, c=256,
+                                        cap=30000)
     denom, e, ga, invtot = _pair_against_plain(a_n, bank, idx)
     denom2, e2 = infonce.infonce_fwd(a_n, bank, idx, 1 / T)
     ga2 = infonce.infonce_bwd(e2, bank, idx, invtot)

@@ -46,7 +46,8 @@ def _infonce_inputs(seed, normalized_bank):
 def _jax_losses_and_grads(fn, anchor, proto, bank, idx, weights):
     def total(a, p):
         losses = jnp.stack([fn(a[k], p[k], jnp.asarray(bank[k]),
-                               jnp.asarray(idx[k])) for k in range(K)])
+                               jnp.asarray(idx[k]))
+                            for k in range(len(anchor))])
         return jnp.sum(losses * weights), losses
     (_, losses), (ga, gp) = jax.value_and_grad(
         total, argnums=(0, 1), has_aux=True)(jnp.asarray(anchor),
@@ -98,20 +99,20 @@ def test_fused_infonce_matches_xla_sampled_infonce():
 Q_R, N_R = 20, 30
 
 
-def _sampler_idx(rs, func, cap):
-    """neg_idx [K, Q_R, N_R] as the contrastive loss draws it: Q_R * N_R
+def _sampler_idx(rs, func, cap, k=K):
+    """neg_idx [k, Q_R, N_R] as the contrastive loss draws it: Q_R * N_R
     ranks per class from the sampler's f32 arithmetic
     (ops/sampling.py), reshaped so that neg_idx[k, q, n] = rank[n*Q_R + q].
     Stratified ranks make neighbouring queries share rows at each n."""
     m = Q_R * N_R
     if func == "uniform":
-        ranks = rs.randint(0, cap, size=(K, m))
+        ranks = rs.randint(0, cap, size=(k, m))
     elif func == "smc":
-        u = rs.rand(K, m).astype(np.float32)
+        u = rs.rand(k, m).astype(np.float32)
         pos = (np.arange(m, dtype=np.float32) + u) / np.float32(m)
         ranks = (pos * np.float32(cap)).astype(np.int32)
     else:
-        t = rs.rand(K, m // 2).astype(np.float32) * np.float32(2)
+        t = rs.rand(k, m // 2).astype(np.float32) * np.float32(2)
         base = np.float32(2) * np.arange(m // 2, dtype=np.float32)
         pos = np.concatenate([(base + t) / np.float32(m),
                               (base + (np.float32(2) - t)) / np.float32(m)],
@@ -119,7 +120,7 @@ def _sampler_idx(rs, func, cap):
         ranks = (pos * np.float32(cap)).astype(np.int32)
     ranks = np.clip(ranks, 0, cap - 1).astype(np.int32)
     return np.ascontiguousarray(
-        ranks.reshape(K, N_R, Q_R).transpose(0, 2, 1))
+        ranks.reshape(k, N_R, Q_R).transpose(0, 2, 1))
 
 
 @pytest.mark.parametrize("normalized_bank", [False, True])
@@ -138,6 +139,33 @@ def test_fused_infonce_at_sampler_draws(func, normalized_bank):
     weights = rs.rand(K).astype(np.float32)
     if func != "uniform":   # neighbouring queries share rows at each n
         assert (idx[:, 1:] == idx[:, :-1]).mean() > 0.5
+    jfn = lambda a, p, b, i: pallas_sampled_infonce(
+        a, p, b, i, temp=T, tile=32, interpret=True,
+        bank_normalized=normalized_bank)
+    tfn = lambda a, p, b, i: infonce.fused_sampled_infonce(
+        a, p, b, i, T, bank_normalized=normalized_bank)
+    args = (anchor, proto, bank, idx, weights)
+    _assert_triplet(_torch_losses_and_grads(tfn, *args),
+                    _jax_losses_and_grads(jfn, *args))
+
+
+@pytest.mark.parametrize("normalized_bank", [False, True])
+@pytest.mark.parametrize("func", ["smc", "asmc", "uniform"])
+@pytest.mark.parametrize("k,c", [(2, 16), (21, 256)], ids=["3d", "natural"])
+def test_fused_infonce_at_sampler_draws_at_other_shapes(k, c, func,
+                                                       normalized_bank):
+    """As test_fused_infonce_at_sampler_draws, at the 3D path's class count
+    and width (K 2, C 16) and the natural path's (K 21, C 256), at a small
+    Q, N and capacity: the plain pair that the card holds the kernels
+    against, against the Pallas pair in interpret mode."""
+    rs = np.random.RandomState(11)
+    anchor = rs.randn(k, Q_R, c).astype(np.float32)
+    proto = rs.randn(k, c).astype(np.float32)
+    bank = rs.randn(k, CAP, c).astype(np.float32)
+    if normalized_bank:
+        bank /= np.linalg.norm(bank, axis=-1, keepdims=True)
+    idx = _sampler_idx(rs, func, CAP, k)
+    weights = rs.rand(k).astype(np.float32)
     jfn = lambda a, p, b, i: pallas_sampled_infonce(
         a, p, b, i, temp=T, tile=32, interpret=True,
         bank_normalized=normalized_bank)
