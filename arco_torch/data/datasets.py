@@ -13,6 +13,8 @@ Parity targets:
 - LAHeart (dataloaders/la_heart.py:14-105): `train.list` +
   `<case>/mri_norm2.h5`, 3-D RandomRotFlip + RandomCrop to (112,112,80).
   Volumes are [W, H, D], depth last, as in the h5 files.
+- BraTS2019 (dataloaders/dataset_withAug.py:22-80): `train.txt` /
+  `val.txt` + `data/<case>.h5`, LA's transforms to (96,96,96).
 
 All transforms run in numpy/scipy on the host and consume the caller's
 ``RandomState`` in the JAX package's order. ``h5py`` is optional: without
@@ -194,6 +196,29 @@ class LAHeartDataset(VolumeDataset):
     def load(self, idx: int):
         return read_h5(os.path.join(self.base_dir, self.sample_list[idx],
                                     "mri_norm2.h5"))
+
+
+class BraTS2019Dataset(VolumeDataset):
+    """BraTS 2019 3D volumes (dataloaders/dataset_withAug.py:22-80):
+    ``<root>/data/<case>.h5`` with train.txt / val.txt lists; ``num`` keeps
+    the first ``num`` training cases. LA's transforms at a 96^3 patch."""
+
+    def __init__(self, base_dir: str, split: str = "train",
+                 num: Optional[int] = None, patch_size=(96, 96, 96),
+                 transform: bool = True):
+        self.base_dir = base_dir
+        self.split = split
+        self.patch_size = tuple(patch_size)
+        self.transform = transform
+        name = "train.txt" if split == "train" else "val.txt"
+        samples = _read_list(os.path.join(base_dir, name))
+        if num is not None and split == "train":
+            samples = samples[:num]
+        self.sample_list = samples
+
+    def load(self, idx: int):
+        return read_h5(os.path.join(self.base_dir, "data",
+                                    f"{self.sample_list[idx]}.h5"))
 
 
 class InMemoryVolumes(VolumeDataset):

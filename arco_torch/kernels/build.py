@@ -32,11 +32,14 @@ _P, _I, _LL, _F, _SZ = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _SIGNATURES = {
     "arco_infonce_fwd": (_I, [_P] * 6 + [_I] * 4 + [_LL, _F, _P]),
     "arco_infonce_bwd": (_I, [_P] * 6 + [_I] * 4 + [_LL, _P]),
-    "arco_infonce_smem": (_SZ, [_I, _I]),
+    "arco_infonce_fwd_f32": (_I, [_P] * 6 + [_I] * 4 + [_LL, _F, _P]),
+    "arco_infonce_bwd_f32": (_I, [_P] * 6 + [_I] * 4 + [_LL, _P]),
+    "arco_infonce_smem": (_SZ, [_I, _I, _I]),
     "arco_infonce_group": (_I, []),
     "arco_infonce_splits": (_I, [_I] * 4),
-    "arco_infonce_rows": (_I, [_I] * 5),
+    "arco_infonce_rows": (_I, [_I] * 6),
     "arco_pool_sims": (_I, [_P, _P, _P, _P, _I, _I, _LL, _I, _P]),
+    "arco_pool_sims_f32": (_I, [_P, _P, _I, _P, _P, _I, _I, _LL, _I, _P]),
     "arco_pool_sims_blocks_per_sm": (_I, []),
 }
 

@@ -1,4 +1,4 @@
-// Device helpers of the port's kernels (infonce.cu).
+// Device helpers of the port's kernels (infonce.cu, pool_sims.cu).
 
 #pragma once
 

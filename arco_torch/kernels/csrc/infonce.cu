@@ -77,6 +77,29 @@
 // chunks (S = 4, 8 or 16), so the grid has a block for each SM.
 // A second grid sums the S partials in a fixed order: the results are
 // bit-identical from run to run, and no float atomics are used.
+//
+// The f32 route (infonce_fwd_f32_kernel / infonce_bwd_f32_kernel: f32
+// anchors and bank, the stage-2 step at --compute_dtype float32) keeps the
+// tile, the plan and the 2-slot ring, with rows of C / 4 16-byte chunks,
+// and does each stage's work in f32 FMAs on the staged rows, one product
+// per (query, sample) pair, in the order of the channels: no rounding of
+// the operands (single-pass TF32 would leave ~5e-4 on s, ~1e-3 on e), and
+// 2 K Q N C flops, ~8 us at the 2D shapes at f32's rate, below the ~0.09
+// ms that the rows' bytes take, so the copies still set the pace.
+//   fwd: `lanes` lanes (16, fewer at C < 64) compute one pair's dot product
+//        against their part of the query's anchor, held in registers; two
+//        samples a pass share one butterfly sum. Groups beyond the 16
+//        queries take every other sample (C < 64).
+//   bwd: each thread owns fixed (query, 16-byte chunk) entries of the
+//        [G, C] output and accumulates e * invtot * row in registers;
+//        threads beyond G * C / 4 take every other sample, and the block
+//        sums their partials in a fixed order.
+// A pair reads its run head's row, so no pair reads a row past the
+// stage's last and the tail needs no zeros; a pair outside the tile weighs
+// 0 and reads the stage's first row (real data), so its loads need no
+// branch. Each row is read by runs of consecutive lanes over consecutive
+// chunks, which no bank conflict slows, so the ring's stride is C / 4
+// chunks with no pad. The registers allow 2 blocks an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -101,6 +124,10 @@ constexpr size_t kSmemMax = 232448;          // Hopper's 227 KB per block
 constexpr size_t kSmemSM = 233472;           // per SM, 1 KB a block reserved
 constexpr size_t kSmemReserved = 1024;
 constexpr int kMaxDevices = 64;
+constexpr int kBlocksF32 = 2;                // f32 route: blocks an SM
+constexpr int kLanesF32 = 16;                // f32 fwd: lanes a pair, at most
+constexpr int kMaxJF32 = kMaxC / 4 / kLanesF32;        // f32 fwd: chunks a lane
+constexpr int kMaxOwnF32 = kG * (kMaxC / 4) / kThreads;  // f32 bwd: chunks a thread
 
 // The most blocks an SM that the kernels' registers allow (<= 85 a thread
 // for 3): the forward (47) and the backward up to 2 n8-tile pairs a warp
@@ -176,24 +203,36 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
 // (3, or 2 where the registers allow no more) at which a stage of 32 rows
 // fits, else the most at which 16 fit, else one, and then as many rows as
 // fit, up to 512.
+//
+// The f32 route: rows of cr = C / 4 chunks, stride cr; no spart, anchors
+// or W (the FMAs read the ring and registers); the ring at least
+// kThreads * 16 bytes, where the bwd sums its sample slices at the end.
 struct Layout {
-  int c8, ks, stride, tlog, rows, mt, kp, npw, kpb, pairs, chunk, P, blocks;
-  int wstride;
+  int c8, cr, ks, stride, tlog, rows, mt, kp, npw, kpb, pairs, chunk, P;
+  int blocks, wstride, lanes, slices;
+  bool f32;
   size_t ring, spart, anchors, w, val, idx, head, heads, ostart, scan, bytes;
 
-  Layout(int N, int C, int S, bool fwd) {
+  Layout(int N, int C, int S, bool fwd, bool f32_ = false) {
+    f32 = f32_;
     c8 = C / 8;
+    cr = f32 ? C / 4 : c8;              // 16-byte chunks of a bank row
     ks = (c8 + 1) / 2;                  // k16 steps (fwd), n8-tile pairs (bwd)
-    stride = 2 * ks + 1;
+    stride = f32 ? cr : 2 * ks + 1;
     tlog = 0;                           // issue: 2^tlog threads a row
-    while ((1 << tlog) < imin(c8, 32)) ++tlog;
+    while ((1 << tlog) < imin(cr, 32)) ++tlog;
     npw = 1;                            // bwd: warps across the n8-tile pairs
     while (npw < imin(ks, kWarps)) npw *= 2;
     kpb = kWarps / npw;                 // bwd: warps across the k-steps
     pairs = (ks + npw - 1) / npw;       // bwd: n8-tile pairs a warp
+    lanes = 2;                          // f32 fwd: lanes a pair
+    while (lanes < imin(cr, kLanesF32)) lanes *= 2;
+    // f32: sample slices, fwd groups of `lanes` a query, bwd threads an
+    // output chunk
+    slices = fwd ? kThreads / lanes / kG : imax(1, kThreads / (kG * cr));
     chunk = (N + S - 1) / S;
     P = kG * chunk;
-    const int most = max_blocks(fwd, pairs);
+    const int most = f32 ? kBlocksF32 : max_blocks(fwd, pairs);
     for (int least = 32; least >= 16; least -= 16)
       for (blocks = most; blocks >= 2; --blocks)
         if (fit(fwd, kSmemSM / blocks - kSmemReserved, least)) return;
@@ -214,12 +253,15 @@ struct Layout {
     size_t off = 0;
     ring = off;
     size_t ring_bytes = (size_t)2 * rows * stride * 16;
-    if (!fwd && ring_bytes < kRedFloats * sizeof(float))
-      ring_bytes = kRedFloats * sizeof(float);
+    const size_t red_bytes = f32 ? (size_t)kThreads * 16
+                                 : kRedFloats * sizeof(float);
+    if (!fwd && ring_bytes < red_bytes) ring_bytes = red_bytes;
     off += ring_bytes;
     spart = anchors = w = off;
     wstride = rows + 8;                 // odd in 16-byte units, as the ring
-    if (fwd) {
+    if (f32) {
+      // the f32 route stages nothing else
+    } else if (fwd) {
       off += (size_t)kp * rows * kG * sizeof(float);   // f32 [kp, R, G]
       anchors = off;                                    // [G, stride]
       off += (size_t)kG * stride * 16;
@@ -291,7 +333,7 @@ __device__ __forceinline__ Tile tile_of(int Q, int N, const Layout& L) {
 // The chunk past C / 8 of every ring row, when C / 8 is odd: zeros, the
 // last k-step's (fwd) or n8 tile's (bwd) padding. The copies never write it.
 __device__ __forceinline__ void zero_pad(const Layout& L, const Smem& sm) {
-  if (L.c8 & 1)
+  if (!L.f32 && (L.c8 & 1))
     for (int r = threadIdx.x; r < 2 * L.rows; r += kThreads)
       sm.ring[r * L.stride + L.c8] = make_uint4(0, 0, 0, 0);
 }
@@ -351,23 +393,23 @@ __device__ __forceinline__ void plan_tile(const int32_t* neg_idx, int Q, int N,
   __syncthreads();
 }
 
-// Copy the rows of stage st's run heads into a ring slot, row r of the
-// slot for head st * R + r, 2^tlog threads a row; then zero the slot's rows
-// past the stage's last, up to its last m16 tile (the bwd weighs them 0,
-// and 0 * stale bits could be NaN).
-__device__ __forceinline__ void issue_stage(const __nv_bfloat16* kb,
-                                            const Layout& L, const Tile& t,
-                                            const Smem& sm, uint4* slot,
-                                            int st) {
+// Copy the rows of stage st's run heads (cr chunks each from kb, the
+// class's bank) into a ring slot, row r of the slot for head st * R + r,
+// 2^tlog threads a row; then, on the bf16 route, zero the slot's rows past
+// the stage's last, up to its last m16 tile (the bwd weighs them 0, and
+// 0 * stale bits could be NaN).
+__device__ __forceinline__ void issue_stage(const uint4* kb, const Layout& L,
+                                            const Tile& t, const Smem& sm,
+                                            uint4* slot, int st) {
   const int h0 = st * L.rows, nr = imin(L.rows, t.heads - h0);
   const int tpr = 1 << L.tlog;
   for (int r = threadIdx.x >> L.tlog; r < nr; r += kThreads >> L.tlog) {
-    const uint4* row = reinterpret_cast<const uint4*>(
-        kb + (long long)sm.idx[sm.heads[h0 + r]] * (8 * L.c8));
+    const uint4* row = kb + (long long)sm.idx[sm.heads[h0 + r]] * L.cr;
     uint4* dst = slot + r * L.stride;
-    for (int j = threadIdx.x & (tpr - 1); j < L.c8; j += tpr)
+    for (int j = threadIdx.x & (tpr - 1); j < L.cr; j += tpr)
       cp_async16(dst + j, row + j);
   }
+  if (L.f32) return;
   const int nz = (((nr + 15) >> 4) << 4) - nr;
   for (int i = threadIdx.x; i < nz * L.stride; i += kThreads)
     slot[nr * L.stride + i] = make_uint4(0, 0, 0, 0);
@@ -378,9 +420,9 @@ __device__ __forceinline__ void issue_stage(const __nv_bfloat16* kb,
 // thread is done with stage st - 1, whose slot the copies of stage st + 1
 // then refill while stage st is computed.
 template <typename Compute>
-__device__ __forceinline__ void walk(const __nv_bfloat16* kb,
-                                     const Layout& L, const Tile& t,
-                                     const Smem& sm, Compute&& compute) {
+__device__ __forceinline__ void walk(const uint4* kb, const Layout& L,
+                                     const Tile& t, const Smem& sm,
+                                     Compute&& compute) {
   const int slot_len = L.rows * L.stride;
   if (t.stages > 0) issue_stage(kb, L, t, sm, sm.ring, 0);
   cp_async_commit();
@@ -396,6 +438,45 @@ __device__ __forceinline__ void walk(const __nv_bfloat16* kb,
   __syncthreads();
 }
 
+// The forward's tail: e out, coalesced over n; the chunk's partial
+// denominators, each summed by one warp in a fixed order.
+__device__ __forceinline__ void store_fwd(const Layout& L, const Tile& t,
+                                          const Smem& sm, float* e,
+                                          float* dpart, int Q, int N) {
+  constexpr int G = kG;
+  const long long qbase = (long long)t.k * Q + t.q0;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < L.P; i += kThreads) {
+    const int gg = i / L.chunk, nl = i - gg * L.chunk;
+    if (gg < t.gq && nl < t.nn)
+      e[(qbase + gg) * N + t.n0 + nl] = sm.val[nl * G + gg];
+  }
+  for (int gg = warp; gg < t.gq; gg += kWarps) {
+    float sum = 0.f;
+    for (int nl = lane; nl < t.nn; nl += 32) sum += sm.val[nl * G + gg];
+    sum = warp_sum(sum);
+    if (lane == 0)
+      dpart[((long long)t.k * gridDim.y + t.s) * Q + t.q0 + gg] = sum;
+  }
+}
+
+// The backward's weights: val[o] = e * invtot of each pair of the tile, 0
+// outside it.
+__device__ __forceinline__ void load_weights(const Layout& L, const Tile& t,
+                                             const Smem& sm, const float* e,
+                                             const float* invtot, int Q,
+                                             int N) {
+  constexpr int G = kG;
+  const long long qbase = (long long)t.k * Q + t.q0;
+  for (int i = threadIdx.x; i < L.P; i += kThreads) {
+    const int gg = i / L.chunk, nl = i - gg * L.chunk;
+    sm.val[nl * G + gg] =
+        (gg < t.gq && nl < t.nn)
+            ? e[(qbase + gg) * N + t.n0 + nl] * invtot[qbase + gg]
+            : 0.f;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads, 2)
 infonce_fwd_kernel(const Layout L,
                    const __nv_bfloat16* __restrict__ anchors,  // [K,Q,C]
@@ -406,7 +487,6 @@ infonce_fwd_kernel(const Layout L,
                    int Q, int N, int C, long long cap, float inv_temp) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int G = kG;
-  const int S = gridDim.y;
   const Smem sm(smem, L);
   Tile t = tile_of(Q, N, L);
   const long long qbase = (long long)t.k * Q + t.q0;
@@ -425,7 +505,8 @@ infonce_fwd_kernel(const Layout L,
   zero_pad(L, sm);
   plan_tile(neg_idx, Q, N, L, sm, t);
 
-  const __nv_bfloat16* kb = bank + (long long)t.k * cap * C;
+  const uint4* kb =
+      reinterpret_cast<const uint4*>(bank + (long long)t.k * cap * C);
   // A: lane l addresses row (l & 7) + 8 ((l >> 3) & 1) of the m16 tile at
   // k-chunk l >> 4 (matrices rows 0-7 / 8-15 x k 0-7 / 8-15); B: anchor
   // (l & 7) + 8 (l >> 4) at k-chunk (l >> 3) & 1 (n8 tile 0 k lo, k hi,
@@ -475,19 +556,7 @@ infonce_fwd_kernel(const Layout L,
     }
   });
 
-  // e out, coalesced over n; the chunk's partial denominators, each summed
-  // by one warp in a fixed order
-  for (int i = threadIdx.x; i < L.P; i += kThreads) {
-    const int gg = i / L.chunk, nl = i - gg * L.chunk;
-    if (gg < t.gq && nl < t.nn)
-      e[(qbase + gg) * N + t.n0 + nl] = sm.val[nl * G + gg];
-  }
-  for (int gg = warp; gg < t.gq; gg += kWarps) {
-    float sum = 0.f;
-    for (int nl = lane; nl < t.nn; nl += 32) sum += sm.val[nl * G + gg];
-    sum = warp_sum(sum);
-    if (lane == 0) dpart[((long long)t.k * S + t.s) * Q + t.q0 + gg] = sum;
-  }
+  store_fwd(L, t, sm, e, dpart, Q, N);
 }
 
 // NP: the most n8-tile pairs a warp holds (1, 2 or 4), which sizes the
@@ -507,14 +576,7 @@ infonce_bwd_kernel(const Layout L,
   const Smem sm(smem, L);
   Tile t = tile_of(Q, N, L);
 
-  const long long qbase = (long long)t.k * Q + t.q0;
-  for (int i = threadIdx.x; i < L.P; i += kThreads) {
-    const int gg = i / L.chunk, nl = i - gg * L.chunk;
-    sm.val[nl * G + gg] =
-        (gg < t.gq && nl < t.nn)
-            ? e[(qbase + gg) * N + t.n0 + nl] * invtot[qbase + gg]
-            : 0.f;
-  }
+  load_weights(L, t, sm, e, invtot, Q, N);
   zero_pad(L, sm);
   plan_tile(neg_idx, Q, N, L, sm, t);
 
@@ -533,7 +595,8 @@ infonce_bwd_kernel(const Layout L,
 #pragma unroll
     for (int v = 0; v < 4; ++v) acc[i][0][v] = acc[i][1][v] = 0.f;
 
-  const __nv_bfloat16* kb = bank + (long long)t.k * cap * C;
+  const uint4* kb =
+      reinterpret_cast<const uint4*>(bank + (long long)t.k * cap * C);
   // A (W, row-major [G][wstride]): lane l addresses query (l & 7) +
   // 8 ((l >> 3) & 1) at column 8 (l >> 4) of the k-step
   const int a_off = ((lane & 7) + 8 * ((lane >> 3) & 1)) * L.wstride +
@@ -619,6 +682,189 @@ infonce_bwd_kernel(const Layout L,
   }
 }
 
+// The f32 route's forward: the pairs' dot products in f32 FMAs on the
+// staged rows (see the top of the file).
+__global__ void __launch_bounds__(kThreads, kBlocksF32)
+infonce_fwd_f32_kernel(const Layout L,
+                       const float* __restrict__ anchors,      // [K,Q,C]
+                       const float* __restrict__ bank,         // [K,cap,C]
+                       const int32_t* __restrict__ neg_idx,    // [K,Q,N]
+                       float* __restrict__ e,                  // [K,Q,N]
+                       float* __restrict__ dpart,              // [K,S,Q]
+                       int Q, int N, int C, long long cap,
+                       float inv_temp) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int G = kG;
+  const Smem sm(smem, L);
+  Tile t = tile_of(Q, N, L);
+  const long long qbase = (long long)t.k * Q + t.q0;
+
+  // Lane group grp (LP lanes) serves query grp % G and the samples of its
+  // slice grp / G; lane l the chunks j = l + LP * i, so the thread's part
+  // of the anchor lives in registers. A warp's groups share one slice, so
+  // the loop bounds below are the same for the whole warp.
+  const int LP = L.lanes, nsl = L.slices;
+  const int grp = threadIdx.x / LP, lane = threadIdx.x % LP;
+  const int g = grp % G, slice = grp / G;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 a[kMaxJF32];
+  {
+    const float4* arow = reinterpret_cast<const float4*>(anchors) +
+                         (qbase + g) * L.cr;
+#pragma unroll
+    for (int i = 0; i < kMaxJF32; ++i) {
+      const int j = lane + LP * i;
+      a[i] = g < t.gq && j < L.cr ? __ldg(arow + j) : zero;
+    }
+  }
+  plan_tile(neg_idx, Q, N, L, sm, t);
+
+  const uint4* kb =
+      reinterpret_cast<const uint4*>(bank + (long long)t.k * cap * C);
+  // <row, anchor> partial sum of this lane's chunks of slot row r. The
+  // loads are not behind a branch, so the two samples' loads overlap.
+  auto dot = [&](const uint4* slot, int r) {
+    const float4* row = reinterpret_cast<const float4*>(slot + r * L.stride);
+    float4 x[kMaxJF32];
+#pragma unroll
+    for (int i = 0; i < kMaxJF32; ++i) {
+      const int j = lane + LP * i;
+      x[i] = j < L.cr ? row[j] : zero;
+    }
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < kMaxJF32; ++i) {
+      acc[0] = fmaf(x[i].x, a[i].x, acc[0]);
+      acc[1] = fmaf(x[i].y, a[i].y, acc[1]);
+      acc[2] = fmaf(x[i].z, a[i].z, acc[2]);
+      acc[3] = fmaf(x[i].w, a[i].w, acc[3]);
+    }
+    return (acc[0] + acc[1]) + (acc[2] + acc[3]);
+  };
+  walk(kb, L, t, sm, [&](int st, const uint4* slot) {
+    const int oa = sm.ostart[st], ob = sm.ostart[st + 1];
+    const int na = oa / G, nb = (ob - 1) / G, h0 = st * L.rows;
+    auto valid = [&](int nl, int o) {
+      return g < t.gq && nl <= nb && nl < t.nn && o >= oa && o < ob;
+    };
+    // two samples at a time, nl and nl + 1. An invalid pair reads the
+    // stage's first row and is not stored. One butterfly sums both
+    // samples: after its first step the low half of the group holds
+    // sample A's sums and the high half B's.
+    for (int nl = na + 2 * slice; nl <= nb; nl += 2 * nsl) {
+      const int oA = nl * G + g, oB = oA + G;
+      const bool vA = valid(nl, oA), vB = valid(nl + 1, oB);
+      const int rA = vA ? sm.head[oA] - h0 : 0;
+      const int rB = vB ? sm.head[oB] - h0 : 0;
+      const float sA = dot(slot, rA), sB = dot(slot, rB);
+      const bool hi = lane & (LP / 2);
+      float s = (hi ? sB : sA) +
+                __shfl_xor_sync(0xffffffffu, hi ? sA : sB, LP / 2);
+      for (int d = LP / 4; d > 0; d >>= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, d);
+      if (lane == 0 && vA) sm.val[oA] = expf(s * inv_temp - inv_temp);
+      if (lane == LP / 2 && vB) sm.val[oB] = expf(s * inv_temp - inv_temp);
+    }
+  });
+  store_fwd(L, t, sm, e, dpart, Q, N);
+}
+
+// The f32 route's backward: each thread accumulates e * invtot * row for
+// its (query, chunk) entries of the [G, C] output over its samples.
+__global__ void __launch_bounds__(kThreads, kBlocksF32)
+infonce_bwd_f32_kernel(const Layout L,
+                       const float* __restrict__ e,            // [K,Q,N]
+                       const float* __restrict__ bank,         // [K,cap,C]
+                       const int32_t* __restrict__ neg_idx,    // [K,Q,N]
+                       const float* __restrict__ invtot,       // [K,Q]
+                       float* __restrict__ gpart,              // [K,S,Q,C]
+                       int Q, int N, int C, long long cap) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int G = kG;
+  const Smem sm(smem, L);
+  Tile t = tile_of(Q, N, L);
+  load_weights(L, t, sm, e, invtot, Q, N);
+  plan_tile(neg_idx, Q, N, L, sm, t);
+
+  // With one slice thread i owns the output chunks p = i + m * kThreads of
+  // the [G, cr] tile (G * cr <= kMaxOwnF32 * kThreads); with more, each
+  // thread one chunk p = i % own of slice i / own. own_g = G: no entry.
+  const int own = G * L.cr, nsl = L.slices;
+  const int slice = nsl > 1 ? threadIdx.x / own : 0;
+  int own_g[kMaxOwnF32], own_j[kMaxOwnF32];
+  float4 acc[kMaxOwnF32];
+#pragma unroll
+  for (int m = 0; m < kMaxOwnF32; ++m) {
+    const int p = nsl > 1 ? threadIdx.x % own : threadIdx.x + m * kThreads;
+    const bool ok = nsl > 1 ? m == 0 && slice < nsl : p < own;
+    own_g[m] = ok ? p / L.cr : G;
+    own_j[m] = ok ? p - own_g[m] * L.cr : 0;
+    acc[m] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const uint4* kb =
+      reinterpret_cast<const uint4*>(bank + (long long)t.k * cap * C);
+  walk(kb, L, t, sm, [&](int st, const uint4* slot) {
+    const int oa = sm.ostart[st], ob = sm.ostart[st + 1];
+    const int na = oa / G, nb = imin((ob - 1) / G, t.nn - 1);
+    // the stage's samples nl in [lo[m], hi[m]] for query own_g[m]
+    int lo[kMaxOwnF32], hi[kMaxOwnF32];
+#pragma unroll
+    for (int m = 0; m < kMaxOwnF32; ++m) {
+      const int g = own_g[m];
+      lo[m] = na + (na * G + g < oa);
+      hi[m] = g < t.gq ? nb - (nb * G + g >= ob) : na - 1;
+    }
+    // A pair outside the stage weighs 0 and reads the stage's first row.
+    const int h0 = st * L.rows;
+    for (int nl = na + slice; nl <= nb; nl += nsl) {
+      int r[kMaxOwnF32];
+      float w[kMaxOwnF32];
+#pragma unroll
+      for (int m = 0; m < kMaxOwnF32; ++m) {
+        const bool v = nl >= lo[m] && nl <= hi[m];
+        const int o = nl * G + own_g[m];
+        r[m] = v ? sm.head[o] - h0 : 0;
+        w[m] = v ? sm.val[o] : 0.f;
+      }
+      float4 x[kMaxOwnF32];
+#pragma unroll
+      for (int m = 0; m < kMaxOwnF32; ++m)
+        x[m] = reinterpret_cast<const float4*>(slot + r[m] * L.stride)
+            [own_j[m]];
+#pragma unroll
+      for (int m = 0; m < kMaxOwnF32; ++m) {
+        acc[m].x = fmaf(w[m], x[m].x, acc[m].x);
+        acc[m].y = fmaf(w[m], x[m].y, acc[m].y);
+        acc[m].z = fmaf(w[m], x[m].z, acc[m].z);
+        acc[m].w = fmaf(w[m], x[m].w, acc[m].w);
+      }
+    }
+  });
+
+  // the slices' partials, summed in slice order in the ring, which the
+  // walk no longer uses
+  if (nsl > 1) {
+    float4* red = reinterpret_cast<float4*>(sm.ring);
+    const int p = threadIdx.x % own;
+    if (slice > 0 && slice < nsl) red[(slice - 1) * own + p] = acc[0];
+    __syncthreads();
+    if (slice == 0)
+      for (int s = 1; s < nsl; ++s) {
+        const float4 v = red[(s - 1) * own + p];
+        acc[0].x += v.x;
+        acc[0].y += v.y;
+        acc[0].z += v.z;
+        acc[0].w += v.w;
+      }
+  }
+  if (slice != 0) return;
+  float4* out = reinterpret_cast<float4*>(
+      gpart + (((long long)t.k * gridDim.y + t.s) * Q + t.q0) * C);
+#pragma unroll
+  for (int m = 0; m < kMaxOwnF32; ++m)
+    if (own_g[m] < t.gq) out[(long long)own_g[m] * L.cr + own_j[m]] = acc[m];
+}
+
 // out[k, r] = sum_s part[k, s, r] for r < inner, in the order of s.
 __global__ void __launch_bounds__(kThreads)
 sum_splits_kernel(const float* __restrict__ part, float* __restrict__ out,
@@ -653,6 +899,7 @@ cudaError_t allow_smem(const void* kernel, bool* done) {
 }
 
 bool fwd_smem_set[kMaxDevices], bwd_smem_set[3][kMaxDevices];
+bool fwd_f32_smem_set[kMaxDevices], bwd_f32_smem_set[kMaxDevices];
 
 // Launch the backward instance for L.pairs n8-tile pairs a warp.
 template <int NP>
@@ -689,19 +936,21 @@ int arco_infonce_splits(int K, int Q, int N, int C) {
   return S;
 }
 
-// Rows a stage of the forward (fwd != 0) or the backward kernel stages at
-// this shape.
-int arco_infonce_rows(int K, int Q, int N, int C, int fwd) {
-  return Layout(N, C, arco_infonce_splits(K, Q, N, C), fwd != 0).rows;
+// Rows a stage of the forward (fwd != 0) or the backward kernel of the
+// bf16 (f32 == 0) or the f32 route stages at this shape.
+int arco_infonce_rows(int K, int Q, int N, int C, int fwd, int f32) {
+  return Layout(N, C, arco_infonce_splits(K, Q, N, C), fwd != 0, f32 != 0)
+      .rows;
 }
 
-// Dynamic shared memory of a block of either kernel at the fewest splits,
-// or 0 for a shape they do not take: C a multiple of 8 up to 512, at most
-// 32767 pairs per tile, and at most kSmemMax bytes (more splits only make
-// the tile smaller).
-size_t arco_infonce_smem(int N, int C) {
+// Dynamic shared memory of a block of either kernel of the bf16 (f32 ==
+// 0) or the f32 route at the fewest splits, or 0 for a shape they do not
+// take: C a multiple of 8 up to 512, at most 32767 pairs per tile, and at
+// most kSmemMax bytes (more splits only make the tile smaller).
+size_t arco_infonce_smem(int N, int C, int f32) {
   if (N < 1 || C < 8 || C % 8 || C > kMaxC) return 0;
-  const Layout f(N, C, kMinSplits, true), b(N, C, kMinSplits, false);
+  const Layout f(N, C, kMinSplits, true, f32 != 0),
+      b(N, C, kMinSplits, false, f32 != 0);
   if (f.P > 32767 || f.bytes > kSmemMax || b.bytes > kSmemMax) return 0;
   return f.bytes > b.bytes ? f.bytes : b.bytes;
 }
@@ -710,7 +959,7 @@ int arco_infonce_fwd(const void* anchors, const void* bank,
                      const void* neg_idx, void* e, void* dpart, void* denom,
                      int K, int Q, int N, int C, long long cap,
                      float inv_temp, void* stream) {
-  if (!arco_infonce_smem(N, C)) return (int)cudaErrorInvalidValue;
+  if (!arco_infonce_smem(N, C, 0)) return (int)cudaErrorInvalidValue;
   const int S = arco_infonce_splits(K, Q, N, C);
   const Layout L(N, C, S, true);
   cudaError_t err = allow_smem((const void*)infonce_fwd_kernel, fwd_smem_set);
@@ -729,7 +978,7 @@ int arco_infonce_fwd(const void* anchors, const void* bank,
 int arco_infonce_bwd(const void* e, const void* bank, const void* neg_idx,
                      const void* invtot, void* gpart, void* ga, int K, int Q,
                      int N, int C, long long cap, void* stream) {
-  if (!arco_infonce_smem(N, C)) return (int)cudaErrorInvalidValue;
+  if (!arco_infonce_smem(N, C, 0)) return (int)cudaErrorInvalidValue;
   const int S = arco_infonce_splits(K, Q, N, C);
   const Layout L(N, C, S, false);
   const dim3 grid((Q + kG - 1) / kG, S, K);
@@ -746,6 +995,46 @@ int arco_infonce_bwd(const void* e, const void* bank, const void* neg_idx,
                                      ib, it, gp, Q, N, C, cap)
                      : launch_bwd<4>(L, grid, st, bwd_smem_set[2], ef, kb,
                                      ib, it, gp, Q, N, C, cap);
+  if (err != cudaSuccess) return (int)err;
+  return sum_splits((const float*)gpart, (float*)ga, S, (long long)Q * C,
+                    (long long)K * Q * C, (cudaStream_t)stream);
+}
+
+// The f32 route: f32 anchors and bank, the same arguments and outputs.
+int arco_infonce_fwd_f32(const void* anchors, const void* bank,
+                         const void* neg_idx, void* e, void* dpart,
+                         void* denom, int K, int Q, int N, int C,
+                         long long cap, float inv_temp, void* stream) {
+  if (!arco_infonce_smem(N, C, 1)) return (int)cudaErrorInvalidValue;
+  const int S = arco_infonce_splits(K, Q, N, C);
+  const Layout L(N, C, S, true, true);
+  cudaError_t err =
+      allow_smem((const void*)infonce_fwd_f32_kernel, fwd_f32_smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Q + kG - 1) / kG, S, K);
+  infonce_fwd_f32_kernel<<<grid, kThreads, L.bytes, (cudaStream_t)stream>>>(
+      L, (const float*)anchors, (const float*)bank, (const int32_t*)neg_idx,
+      (float*)e, (float*)dpart, Q, N, C, cap, inv_temp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return sum_splits((const float*)dpart, (float*)denom, S, Q,
+                    (long long)K * Q, (cudaStream_t)stream);
+}
+
+int arco_infonce_bwd_f32(const void* e, const void* bank, const void* neg_idx,
+                         const void* invtot, void* gpart, void* ga, int K,
+                         int Q, int N, int C, long long cap, void* stream) {
+  if (!arco_infonce_smem(N, C, 1)) return (int)cudaErrorInvalidValue;
+  const int S = arco_infonce_splits(K, Q, N, C);
+  const Layout L(N, C, S, false, true);
+  cudaError_t err =
+      allow_smem((const void*)infonce_bwd_f32_kernel, bwd_f32_smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((Q + kG - 1) / kG, S, K);
+  infonce_bwd_f32_kernel<<<grid, kThreads, L.bytes, (cudaStream_t)stream>>>(
+      L, (const float*)e, (const float*)bank, (const int32_t*)neg_idx,
+      (const float*)invtot, (float*)gpart, Q, N, C, cap);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return sum_splits((const float*)gpart, (float*)ga, S, (long long)Q * C,
                     (long long)K * Q * C, (cudaStream_t)stream);

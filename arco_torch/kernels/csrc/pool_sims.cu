@@ -49,12 +49,36 @@
 //   sums the blocks' partials in block order and resets the ticket. The
 //   result is bit-for-bit the same on every run, which matters because the
 //   revisiting loss takes top-k of these similarities.
+//
+// The f32 route (pool_sims_f32_kernel; the stage-2 step at
+// --compute_dtype float32): f32 queries against a pool in bf16 (the CLIs'
+// default) or f32, each pool element widened in registers (bf16 -> f32 is
+// exact), f32 FMAs in the order of F within a lane: what
+// _pool_sims_kernel computes, with no rounding of the operands. Still
+// bound by bytes: at the 2D shapes 36 bf16 pool rows and 4 f32 query rows
+// of 32.5M are ~2.86 GB, ~0.85 ms, against 9.4 GFLOP, ~0.14 ms at f32's
+// rate.
+// - The block's 12 warps walk the same F-range and split the pool rows:
+//   warp w takes rows k0 + w + 12 i (i < 4, a group of 48 rows along the
+//   grid's y), so a lane holds 4 x QB accumulators for QB query rows (4 or
+//   8, more in groups along z). Lane l reads features 4l..4l+3 of each
+//   half of a 256-feature step: 8 (bf16) or 16 bytes a pool row, 16 a
+//   query row, so each load instruction of the warp reads one contiguous
+//   run; the warps after the first find the queries in L1.
+// - Two steps' loads in flight before their FMAs at QB = 4, one at 8.
+// - Each warp sums its accumulators over its lanes (a fixed butterfly) and
+//   writes its rows of the block's partial [B, K]; the last block sums the
+//   partials as the bf16 route does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
+
+using arco::warp_sum;
 
 constexpr int kThreads = 384;
 constexpr int kWarps = kThreads / 32;
@@ -94,6 +118,56 @@ __device__ __forceinline__ void mma_step(float (&d)[4], const uint4& lo,
                                          const uint4& hi, const uint4& q) {
   mma16816(d, lo.x, hi.x, lo.y, hi.y, q.x, q.y);
   mma16816(d, lo.z, hi.z, lo.w, hi.w, q.z, q.w);
+}
+
+// After a block wrote its partials: the last block to finish sums the
+// partials [gridDim.x, BKp] of all F-blocks in block order into out [B, K]
+// and resets the ticket.
+__device__ __forceinline__ void finish(const float* partial,
+                                       unsigned int* ticket, float* out,
+                                       int BK) {
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned int total = gridDim.x * gridDim.y * gridDim.z;
+    last = atomicAdd(ticket, 1u) == total - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int BKp = (BK + 3) & ~3;
+  const int cols = BKp / 4, n_blocks = gridDim.x;
+  for (int c = threadIdx.x; c < cols; c += kThreads) {
+    const float4* p = reinterpret_cast<const float4*>(partial) + c;
+    float4 acc4 = make_float4(0.f, 0.f, 0.f, 0.f);
+    int x = 0;
+    for (; x + kReduceUnroll <= n_blocks; x += kReduceUnroll) {
+      float4 v[kReduceUnroll];
+#pragma unroll
+      for (int u = 0; u < kReduceUnroll; ++u)
+        v[u] = __ldcg(p + (long long)(x + u) * cols);
+#pragma unroll
+      for (int u = 0; u < kReduceUnroll; ++u) {
+        acc4.x += v[u].x;
+        acc4.y += v[u].y;
+        acc4.z += v[u].z;
+        acc4.w += v[u].w;
+      }
+    }
+    for (; x < n_blocks; ++x) {
+      const float4 v = __ldcg(p + (long long)x * cols);
+      acc4.x += v.x;
+      acc4.y += v.y;
+      acc4.z += v.z;
+      acc4.w += v.w;
+    }
+    const float r[4] = {acc4.x, acc4.y, acc4.z, acc4.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (4 * c + e < BK) out[4 * c + e] = r[e];
+  }
+  if (threadIdx.x == 0) *ticket = 0u;      // ready for the next launch
 }
 
 // grid: x = F-blocks, y = groups of kRowsM pool rows, z = groups of 8 * NB
@@ -220,48 +294,177 @@ pool_sims_kernel(const __nv_bfloat16* __restrict__ queries,   // [B, F]
     }
   }
 
-  // the last block to finish sums the partials of all F-blocks
-  __shared__ bool last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const unsigned int total = gridDim.x * gridDim.y * gridDim.z;
-    last = atomicAdd(ticket, 1u) == total - 1;
+  finish(partial, ticket, out, BK);
+}
+
+// The f32 route. kWarpRows: pool rows a warp (the block's 48 over its 12
+// warps); a step is 256 features, 8 a lane: features 4l..4l+3 of each
+// 128-feature half, so every load of the warp reads one contiguous run
+// (256 or 512 bytes).
+constexpr int kWarpRows = kRowsM / kWarps;
+constexpr int kStepF32 = 256, kHalfF32 = kStepF32 / 2;
+template <int QB>
+__host__ __device__ constexpr int unroll_f32() { return QB <= 4 ? 2 : 1; }
+
+// A pool load of 8 bytes: read once, not through L1, the L2 hint as ld_pool
+__device__ __forceinline__ uint2 ld_pool2(const uint2* p) {
+  uint2 v;
+  asm("ld.global.nc.L2::256B.v2.u32 {%0, %1}, [%2];\n"
+      : "=r"(v.x), "=r"(v.y)
+      : "l"(p));
+  return v;
+}
+
+// A lane's 8 features of a pool row, 4 in each half, kept as loaded (bf16
+// is widened at use).
+template <typename P>
+struct Pool8;
+template <>
+struct Pool8<__nv_bfloat16> {
+  uint2 v[2];
+  __device__ __forceinline__ void load(const __nv_bfloat16* p, bool in0,
+                                       bool in1) {
+    const uint2 zero = make_uint2(0u, 0u);
+    v[0] = in0 ? ld_pool2(reinterpret_cast<const uint2*>(p)) : zero;
+    v[1] = in1 ? ld_pool2(reinterpret_cast<const uint2*>(p + kHalfF32))
+               : zero;
   }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  const int cols = BKp / 4, n_blocks = gridDim.x;
-  for (int c = threadIdx.x; c < cols; c += kThreads) {
-    const float4* p = reinterpret_cast<const float4*>(partial) + c;
-    float4 acc4 = make_float4(0.f, 0.f, 0.f, 0.f);
-    int x = 0;
-    for (; x + kReduceUnroll <= n_blocks; x += kReduceUnroll) {
-      float4 v[kReduceUnroll];
+  // feature e (0..7) as f32 (bf16 -> f32 is exact)
+  __device__ __forceinline__ float at(int e) const {
+    const uint32_t w = (&v[e >> 2].x)[(e & 3) >> 1];
+    return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
+  }
+};
+template <>
+struct Pool8<float> {
+  uint4 v[2];
+  __device__ __forceinline__ void load(const float* p, bool in0, bool in1) {
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    v[0] = in0 ? ld_pool(reinterpret_cast<const uint4*>(p)) : zero;
+    v[1] = in1 ? ld_pool(reinterpret_cast<const uint4*>(p + kHalfF32))
+               : zero;
+  }
+  __device__ __forceinline__ float at(int e) const {
+    return __uint_as_float((&v[e >> 2].x)[e & 3]);
+  }
+};
+
+// grid: x = F-blocks, y = groups of kRowsM pool rows, z = groups of QB
+// query rows. steps_per_block: 256-feature steps a block, a multiple of U;
+// every warp of the block walks them all, for its own pool rows.
+// partial: [gridDim.x, BKp] floats, as pool_sims_kernel's.
+template <int QB, typename P>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+pool_sims_f32_kernel(const float* __restrict__ queries,       // [B, F]
+                     const P* __restrict__ pool,              // [K, F]
+                     float* __restrict__ partial, unsigned int* ticket,
+                     float* __restrict__ out,                 // [B, K]
+                     int B, int K, long long F,
+                     long long steps_per_block) {
+  constexpr int U = unroll_f32<QB>();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int k0 = blockIdx.y * kRowsM + warp, b0 = blockIdx.z * QB;
+  const long long n_steps = (F + kStepF32 - 1) / kStepF32;
+  const long long s_begin = (long long)blockIdx.x * steps_per_block;
+  const long long s_end = min(s_begin + steps_per_block, n_steps);
+  const long long f0 = s_begin * kStepF32 + 4 * lane;
+
+  const P* prow[kWarpRows];
+  bool pok[kWarpRows];
 #pragma unroll
-      for (int u = 0; u < kReduceUnroll; ++u)
-        v[u] = __ldcg(p + (long long)(x + u) * cols);
+  for (int r = 0; r < kWarpRows; ++r) {
+    const int k = k0 + kWarps * r;
+    pok[r] = k < K;
+    prow[r] = pool + (pok[r] ? k : 0) * F + f0;
+  }
+  const float* qrow[QB];
+  bool qok[QB];
 #pragma unroll
-      for (int u = 0; u < kReduceUnroll; ++u) {
-        acc4.x += v[u].x;
-        acc4.y += v[u].y;
-        acc4.z += v[u].z;
-        acc4.w += v[u].w;
+  for (int j = 0; j < QB; ++j) {
+    const int b = b0 + j;
+    qok[j] = b < B;
+    qrow[j] = queries + (qok[j] ? b : 0) * F + f0;
+  }
+  float acc[QB][kWarpRows];
+#pragma unroll
+  for (int j = 0; j < QB; ++j)
+#pragma unroll
+    for (int r = 0; r < kWarpRows; ++r) acc[j][r] = 0.f;
+
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (long long s = s_begin; s < s_end; s += U) {
+    Pool8<P> pv[U][kWarpRows];
+    float4 qv[U][QB][2];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      // F is a multiple of 8: a lane's 4 features of a half lie all in or
+      // all out
+      const long long off = (s - s_begin + u) * kStepF32;
+      const bool live = s + u < s_end;
+      const bool in0 = live && f0 + off < F;
+      const bool in1 = live && f0 + off + kHalfF32 < F;
+#pragma unroll
+      for (int r = 0; r < kWarpRows; ++r)
+        pv[u][r].load(prow[r] + off, in0 && pok[r], in1 && pok[r]);
+#pragma unroll
+      for (int j = 0; j < QB; ++j) {
+        const float* q = qrow[j] + off;
+        qv[u][j][0] = in0 && qok[j]
+                          ? __ldg(reinterpret_cast<const float4*>(q))
+                          : zero4;
+        qv[u][j][1] = in1 && qok[j]
+                          ? __ldg(reinterpret_cast<const float4*>(
+                                q + kHalfF32))
+                          : zero4;
       }
     }
-    for (; x < n_blocks; ++x) {
-      const float4 v = __ldcg(p + (long long)x * cols);
-      acc4.x += v.x;
-      acc4.y += v.y;
-      acc4.z += v.z;
-      acc4.w += v.w;
-    }
-    const float r[4] = {acc4.x, acc4.y, acc4.z, acc4.w};
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (4 * c + e < BK) out[4 * c + e] = r[e];
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int r = 0; r < kWarpRows; ++r)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float x = pv[u][r].at(e);
+#pragma unroll
+          for (int j = 0; j < QB; ++j)
+            acc[j][r] = fmaf((&qv[u][j][e >> 2].x)[e & 3], x, acc[j][r]);
+        }
   }
-  if (threadIdx.x == 0) *ticket = 0u;      // ready for the next launch
+
+  // each warp's rows of the block's partial, summed over its lanes
+  const int BK = B * K, BKp = (BK + 3) & ~3;
+  float* mine = partial + (long long)blockIdx.x * BKp;
+#pragma unroll
+  for (int j = 0; j < QB; ++j)
+#pragma unroll
+    for (int r = 0; r < kWarpRows; ++r) {
+      const float v = warp_sum(acc[j][r]);
+      const int k = k0 + kWarps * r, b = b0 + j;
+      if (lane == 0 && k < K && b < B) mine[b * K + k] = v;
+    }
+  finish(partial, ticket, out, BK);
+}
+
+template <int QB, typename P>
+cudaError_t launch_f32(const float* q, const P* p, void* workspace,
+                       float* out, int B, int K, long long F, int max_blocks,
+                       cudaStream_t stream) {
+  constexpr int U = unroll_f32<QB>();
+  const int groups_k = (K + kRowsM - 1) / kRowsM;
+  const int groups_b = (B + QB - 1) / QB;
+  const long long n_steps = (F + kStepF32 - 1) / kStepF32;
+  long long cap = max_blocks / (groups_k * groups_b);
+  if (cap < 1) cap = 1;
+  const long long iters = (n_steps + U - 1) / U;
+  const long long steps_per_block = U * ((iters + cap - 1) / cap);
+  const long long n_blocks = (n_steps + steps_per_block - 1) / steps_per_block;
+  unsigned int* ticket = static_cast<unsigned int*>(workspace);
+  float* partial =
+      reinterpret_cast<float*>(static_cast<char*>(workspace) + 16);
+  pool_sims_f32_kernel<QB, P><<<dim3((unsigned)n_blocks, groups_k, groups_b),
+                                kThreads, 0, stream>>>(
+      q, p, partial, ticket, out, B, K, F, steps_per_block);
+  return cudaGetLastError();
 }
 
 template <int NB>
@@ -309,6 +512,27 @@ int arco_pool_sims(const void* queries, const void* pool, void* workspace,
   const cudaError_t err =
       B <= 8 ? launch<1>(q, p, workspace, o, B, K, F, max_blocks, s)
              : launch<2>(q, p, workspace, o, B, K, F, max_blocks, s);
+  return (int)err;
+}
+
+// The f32 route: f32 queries against a bf16 (pool_f32 == 0) or f32 pool;
+// the same workspace, max_blocks and F (a multiple of 8) as above.
+int arco_pool_sims_f32(const void* queries, const void* pool, int pool_f32,
+                       void* workspace, void* out, int B, int K, long long F,
+                       int max_blocks, void* stream) {
+  const float* q = static_cast<const float*>(queries);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  cudaError_t err;
+  if (pool_f32) {
+    const float* p = static_cast<const float*>(pool);
+    err = B <= 4 ? launch_f32<4>(q, p, workspace, o, B, K, F, max_blocks, s)
+                 : launch_f32<8>(q, p, workspace, o, B, K, F, max_blocks, s);
+  } else {
+    const __nv_bfloat16* p = static_cast<const __nv_bfloat16*>(pool);
+    err = B <= 4 ? launch_f32<4>(q, p, workspace, o, B, K, F, max_blocks, s)
+                 : launch_f32<8>(q, p, workspace, o, B, K, F, max_blocks, s);
+  }
   return (int)err;
 }
 

@@ -11,7 +11,10 @@ the sampled negatives neg_idx [K, Q, N]. Per class:
 ``infonce_fwd`` (the denominator and e_qn = exp(s_qn / T - 1 / T)) and
 ``infonce_bwd`` (the softmax-weighted key sum, from e) launch the kernels of
 csrc/infonce.cu for CUDA tensors and compute their plain PyTorch versions,
-``infonce_denom_plain`` / ``infonce_grad_plain``, for CPU tensors.
+``infonce_denom_plain`` / ``infonce_grad_plain``, for CPU tensors. On CUDA
+a bf16 bank (with bf16 anchors) takes the bf16 route, an f32 bank (with f32
+anchors: the step at --compute_dtype float32) the f32 route, each counted
+under its own name in LAUNCHES.
 ``FusedInfoNCE`` pairs them as an autograd Function that saves e for the
 backward; the normalization chain and the positive logit stay in PyTorch
 around it, and the bank receives no gradient (it holds detached teacher
@@ -27,7 +30,8 @@ import torch
 from arco_torch.kernels import build
 from arco_torch.ops.normalize import l2_normalize
 
-LAUNCHES = {"infonce_fwd": 0, "infonce_bwd": 0}
+LAUNCHES = {"infonce_fwd": 0, "infonce_bwd": 0, "infonce_fwd_f32": 0,
+            "infonce_bwd_f32": 0}
 
 
 def _gather_rows(bank, neg_idx):
@@ -70,37 +74,50 @@ def _check_bank(bank, neg_idx, k, q, c):
 
 
 @functools.cache
-def _splits(k, q, n, c):
+def _splits(k, q, n, c, f32: bool):
     """The kernels' chunks of the samples at this shape, each with its own
-    partials, after checking that they take N samples of C channels."""
+    partials, after checking that the route's kernels take N samples of C
+    channels."""
     lib = build.load_library()
-    if not lib.arco_infonce_smem(n, c):
+    if not lib.arco_infonce_smem(n, c, int(f32)):
         raise ValueError(f"the infonce kernels do not take N={n}, C={c}")
     return lib.arco_infonce_splits(k, q, n, c)
 
 
+def _route(bank):
+    """(the bank's dtype, whether it takes the f32 route) on CUDA."""
+    if bank.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the infonce kernels take a bf16 or f32 bank, got "
+                         f"{bank.dtype}")
+    return bank.dtype, bank.dtype == torch.float32
+
+
 def infonce_fwd(a_n, bank, neg_idx, inv_temp: float):
     """(denom [K, Q], e [K, Q, N]) f32, e = exp(s / T - 1 / T) of each
-    sampled similarity. neg_idx entries must lie in [0, cap). One call is
-    one launch in LAUNCHES, though it runs two grids (the kernel and the
-    fixed-order sum of its partial denominators)."""
+    sampled similarity. neg_idx entries must lie in [0, cap). The anchors
+    have the bank's dtype, bf16 or f32. One call is one launch in LAUNCHES,
+    though it runs two grids (the kernel and the fixed-order sum of its
+    partial denominators)."""
     if a_n.device.type == "cpu":
         return infonce_denom_plain(a_n, bank, neg_idx, inv_temp)
-    _check(("a_n", a_n, torch.bfloat16), ("bank", bank, torch.bfloat16),
+    dtype, f32 = _route(bank)
+    _check(("a_n", a_n, dtype), ("bank", bank, dtype),
            ("neg_idx", neg_idx, torch.int32))
     k, q, c = a_n.shape
     _check_bank(bank, neg_idx, k, q, c)
     n = neg_idx.shape[2]
-    s = _splits(k, q, n, c)
-    f32 = dict(dtype=torch.float32, device=a_n.device)
-    denom = torch.empty((k, q), **f32)
-    e = torch.empty((k, q, n), **f32)
-    dpart = torch.empty((k, s, q), **f32)
-    build.check(build.load_library().arco_infonce_fwd(
+    s = _splits(k, q, n, c, f32)
+    out = dict(dtype=torch.float32, device=a_n.device)
+    denom = torch.empty((k, q), **out)
+    e = torch.empty((k, q, n), **out)
+    dpart = torch.empty((k, s, q), **out)
+    lib = build.load_library()
+    name = "infonce_fwd_f32" if f32 else "infonce_fwd"
+    build.check(getattr(lib, "arco_" + name)(
         a_n.data_ptr(), bank.data_ptr(), neg_idx.data_ptr(), e.data_ptr(),
         dpart.data_ptr(), denom.data_ptr(), k, q, n, c, bank.shape[1],
-        float(inv_temp), build.stream_ptr(a_n.device)), "infonce_fwd")
-    LAUNCHES["infonce_fwd"] += 1
+        float(inv_temp), build.stream_ptr(a_n.device)), name)
+    LAUNCHES[name] += 1
     return denom, e
 
 
@@ -110,7 +127,8 @@ def infonce_bwd(e, bank, neg_idx, invtot):
     kernel and the fixed-order sum of its per-chunk [K, Q, C] partials)."""
     if e.device.type == "cpu":
         return infonce_grad_plain(e, bank, neg_idx, invtot)
-    _check(("e", e, torch.float32), ("bank", bank, torch.bfloat16),
+    dtype, f32 = _route(bank)
+    _check(("e", e, torch.float32), ("bank", bank, dtype),
            ("neg_idx", neg_idx, torch.int32),
            ("invtot", invtot, torch.float32))
     k, q, n = e.shape
@@ -119,15 +137,17 @@ def infonce_bwd(e, bank, neg_idx, invtot):
     if neg_idx.shape != e.shape or invtot.shape != (k, q):
         raise ValueError(f"neg_idx {tuple(neg_idx.shape)} and invtot "
                          f"{tuple(invtot.shape)} for e {tuple(e.shape)}")
-    s = _splits(k, q, n, c)
-    f32 = dict(dtype=torch.float32, device=e.device)
-    ga = torch.empty((k, q, c), **f32)
-    gpart = torch.empty((k, s, q, c), **f32)
-    build.check(build.load_library().arco_infonce_bwd(
+    s = _splits(k, q, n, c, f32)
+    out = dict(dtype=torch.float32, device=e.device)
+    ga = torch.empty((k, q, c), **out)
+    gpart = torch.empty((k, s, q, c), **out)
+    lib = build.load_library()
+    name = "infonce_bwd_f32" if f32 else "infonce_bwd"
+    build.check(getattr(lib, "arco_" + name)(
         e.data_ptr(), bank.data_ptr(), neg_idx.data_ptr(), invtot.data_ptr(),
         gpart.data_ptr(), ga.data_ptr(), k, q, n, c, bank.shape[1],
-        build.stream_ptr(e.device)), "infonce_bwd")
-    LAUNCHES["infonce_bwd"] += 1
+        build.stream_ptr(e.device)), name)
+    LAUNCHES[name] += 1
     return ga
 
 

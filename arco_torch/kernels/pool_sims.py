@@ -4,7 +4,9 @@
 sims[b, k] = sum_f queries[b, f] * pool[k, f] with f32 accumulation.
 ``pool_similarities`` launches the kernel of csrc/pool_sims.cu for CUDA
 tensors and computes the plain PyTorch version ``pool_similarities_plain``
-for CPU tensors.
+for CPU tensors. On CUDA, bf16 queries against a bf16 pool take the bf16
+route ("pool_sims" in LAUNCHES), f32 queries against a bf16 or f32 pool
+the f32 route ("pool_sims_f32"), which widens the pool in registers.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import torch
 
 from arco_torch.kernels import build
 
-LAUNCHES = {"pool_sims": 0}
+LAUNCHES = {"pool_sims": 0, "pool_sims_f32": 0}
 
 # (device index, stream) -> the kernel's workspace: a ticket the kernel
 # leaves at zero, then the F-blocks' partial sums. Reused by every launch on
@@ -53,21 +55,29 @@ def _workspace(lib, device, stream: int, b: int, k: int):
 
 
 def pool_similarities(queries, pool):
-    """queries [B, F], pool [K, F] -> [B, K] f32 (bf16 inputs on CUDA).
-    Any B and K, F a multiple of 8: up to 16 query rows and 48 pool rows
-    share one pass over the operands, more go in groups
+    """queries [B, F], pool [K, F] -> [B, K] f32. On CUDA: bf16 queries
+    against a bf16 pool, or f32 queries against a bf16 or f32 pool. Any B
+    and K, F a multiple of 8: up to 16 (bf16) or 8 (f32) query rows and 48
+    pool rows share one pass over the operands, more go in groups
     (csrc/pool_sims.cu)."""
     if queries.device.type == "cpu":
         return pool_similarities_plain(queries, pool)
     if queries.device.type != "cuda":
         raise RuntimeError(f"pool_sims takes CPU or CUDA tensors, got "
                            f"{queries.device}")
-    for name, t in (("queries", queries), ("pool", pool)):
-        if t.device != queries.device or t.dtype != torch.bfloat16 \
+    f32 = queries.dtype == torch.float32
+    pool_dtypes = (torch.bfloat16, torch.float32) if f32 \
+        else (torch.bfloat16,)
+    for name, t, dtypes in (("queries", queries,
+                             (torch.bfloat16, torch.float32)),
+                            ("pool", pool, pool_dtypes)):
+        if t.device != queries.device or t.dtype not in dtypes \
                 or not t.is_contiguous() or t.ndim != 2 \
                 or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
-                             f"2-D bf16 tensor on {queries.device}")
+            raise ValueError(
+                f"{name} must be a contiguous, 16-byte aligned 2-D tensor "
+                f"on {queries.device}: bf16 queries with a bf16 pool, or "
+                f"f32 queries with a bf16 or f32 pool")
     b, f = queries.shape
     k = pool.shape[0]
     if pool.shape[1] != f or f % 8 or b < 1 or k < 1:
@@ -78,6 +88,13 @@ def pool_similarities(queries, pool):
     stream = build.stream_ptr(queries.device)
     ws, max_blocks = _workspace(lib, queries.device, stream, b, k)
     out = torch.empty((b, k), dtype=torch.float32, device=queries.device)
+    if f32:
+        build.check(lib.arco_pool_sims_f32(
+            queries.data_ptr(), pool.data_ptr(),
+            int(pool.dtype == torch.float32), ws.data_ptr(), out.data_ptr(),
+            b, k, f, max_blocks, stream), "pool_sims_f32")
+        LAUNCHES["pool_sims_f32"] += 1
+        return out
     build.check(lib.arco_pool_sims(
         queries.data_ptr(), pool.data_ptr(), ws.data_ptr(), out.data_ptr(),
         b, k, f, max_blocks, stream), "pool_sims")

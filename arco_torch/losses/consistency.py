@@ -50,11 +50,14 @@ def revisiting_loss(random_pool, rep_u, rep_u_teacher, topk: int = 5,
     with torch.no_grad():
         st = torch.cat([l2_normalize(rep_u, dims),
                         l2_normalize(rep_u_teacher, dims)], dim=0)
-        # the pool is read in the reps' dtype, as in JAX (a no-op on the
-        # bf16 main path, where both are bf16)
-        sims = pool_similarities(
-            st.reshape(2 * b, -1).contiguous(),
-            random_pool.reshape(random_pool.shape[0], -1).to(st.dtype))
+        # JAX reads the pool in the reps' dtype. Narrowing (an f32 pool
+        # against bf16 reps) rounds as JAX does, so it stays; widening (a
+        # bf16 pool against f32 reps) is exact, so the kernel widens each
+        # element in registers and no f32 copy of the pool is made.
+        pool = random_pool.reshape(random_pool.shape[0], -1)
+        if pool.element_size() > st.element_size():
+            pool = pool.to(st.dtype)
+        sims = pool_similarities(st.reshape(2 * b, -1).contiguous(), pool)
     dist_t = 2.0 - 2.0 * sims[:b]
     dist_q = 2.0 - 2.0 * sims[b:]
     nn_index = torch.topk(-dist_t, topk, dim=1).indices

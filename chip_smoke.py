@@ -150,24 +150,44 @@ Phases, each of which raises on failure (the script then exits non-zero):
    3 mesh-less steps from the same seeds, then one step of each under
    the profiler (kernels, NCCL kernels, busy share); (b) two gloo ranks
    on the one card at bs 2+2 each against one process at bs 4+4: one
-   f32 step (TF32 off; the contrastive and revisiting terms off, as their
-   kernels take bf16 only) and 3 bf16 steps, each rank's state equal to
-   the other's; every state check reads, beside how far the state is
-   from one process's, how far the steps moved it, which must lie beyond
-   the limit; (c) each rank's ms a step, peak memory and launches (each
-   kernel once a step on each rank), and pool_sims at 2 query rows (a
+   f32 step (TF32 off; every term on, through the kernels' f32 routes)
+   and 3 bf16 steps, each rank's state equal to the other's; every state
+   check reads, beside how far the state is from one process's, how far
+   the steps moved it, which must lie beyond the limit; (c) each rank's
+   ms a step, peak memory and launches (each kernel route of the step's
+   dtype once a step on each rank), and pool_sims at 2 query rows (a
    rank's share of a global bs 2+2 over 2 ranks) against its plain
    version, beside torch.matmul; (d) ``parallel.dryrun``'s
    ``dryrun_multichip(4)`` at its defaults: 4 gloo ranks on the card, a
-   2x2 ("data", "space") mesh.
+   2x2 ("data", "space") mesh;
+16. drive stage 2 at ``--compute_dtype float32`` through the kernels' f32
+   routes (f32 anchors and bank; f32 reps against the bf16 pool, read in
+   place): (a) each f32 route against its plain version (TF32 off, rtol
+   1e-5) at the 2D and 3D shapes, two launches bit-identical, timed with
+   its bound (f32 FMAs at 67 TFLOP/s), and for pool_sims also against an
+   f32 pool and beside torch.matmul (with the pool's widening copy where
+   the pool is bf16, also timed alone); (b) phase 4's small step at f32
+   on the card against the CPU's, strong aug off and at the defaults, each
+   loss term at rtol 1e-4 / atol 1e-6; (c) 3 full-width steps of phase
+   5's configuration at f32, ms a step and peak memory, the revisiting
+   loss handed the state's bf16 pool itself; (d) ``train_arco_2d
+   --compute_dtype float32`` for 4 steps on phase 6's tree and (e)
+   ``train_arco_3d --compute_dtype float32`` for 4 on phase 9's volumes.
+   Every other path launches no f32 route, and phase 16 no bf16 one.
+   Phase 16 runs before phase 15.
 
 It then prints one JSON line with the phases' numbers (phase 14's under
-"serving", phase 15's under "data_parallel"), one with the kernels'
-numbers (each with its 3D record under "3d", whose "launches_two_stage"
+"serving", phase 15's under "data_parallel", phase 16's under "f32"), one
+with the kernels' numbers (the three bf16 routes, then the three f32
+routes "infonce_fwd_f32", "infonce_bwd_f32" and "pool_sims_f32", whose
+top-level numbers are at the 2D shape against the bf16 pool, launches from
+16c and 16d, every shape's record under "shapes"; each bf16 route with its
+3D record under "3d", whose "launches_two_stage"
 counts phase 9's handoff leg; "launches_zoo" counts phase 10's unet_stego
 leg, "launches_natural" phase 12's DeepLab-v2 leg, whose shapes' records
 sit under "natural", "launches_data_parallel" phase 15a's mesh steps and
-"launches_data_parallel_ranks" each rank's bf16 steps in 15b; pool_sims
+"launches_data_parallel_ranks" each rank's steps of the route's dtype in
+15b; pool_sims
 also at 16 and 2 query rows under "rows16" and "rows2") and, last, the
 device line. Without a CUDA GPU, or
 without the repository beside it, it prints no result and exits non-zero.
@@ -194,9 +214,17 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM data sheet: HBM3 bandwidth and dense bf16 tensor-core peak.
+# H100 SXM data sheet: HBM3 bandwidth, dense bf16 tensor-core peak and
+# f32 outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_OPS_PER_S = 989e12
+PEAK_F32_OPS_PER_S = 67e12
+
+# the kernels' routes, as named in their LAUNCHES: bf16 operands (the bf16
+# steps), and f32 anchors and bank, f32 queries against a bf16 or f32 pool
+# (the steps at --compute_dtype float32)
+BF16_ROUTES = ("infonce_fwd", "infonce_bwd", "pool_sims")
+F32_ROUTES = ("infonce_fwd_f32", "infonce_bwd_f32", "pool_sims_f32")
 
 # the main path's kernel shapes: 4 classes (one bank each) x 256 anchors x
 # 512 negatives over 496-channel bank rows; 2 + 2 reps of 496 x 256 x 256
@@ -254,10 +282,23 @@ def _device_ms(fn, reps):
     return statistics.median(times)
 
 
-def _bound_ms(n_bytes, n_ops):
+def _bound_ms(n_bytes, n_ops, peak_ops=PEAK_BF16_OPS_PER_S):
+    """The larger of the bytes over the memory rate and the operations over
+    ``peak_ops`` (bf16 tensor cores by default, PEAK_F32_OPS_PER_S for the
+    f32 routes' FMAs), and which of the two it is."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_BF16_OPS_PER_S * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _check_launches(label, counts, n, routes=BF16_ROUTES):
+    """Each kernel route of ``routes`` launched ``n`` times over a path,
+    every other route none."""
+    for name, got in counts.items():
+        want = n if name in routes else 0
+        if got != want:
+            raise AssertionError(f"{label}: {name} launched {got} times, "
+                                 f"not {want}")
 
 
 def _l2n_rows(x):
@@ -314,11 +355,12 @@ def _neg_draws(gen, device, caps, funcs):
     return out
 
 
-def _infonce_inputs(gen, device, caps, c, funcs):
+def _infonce_inputs(gen, device, caps, c, funcs, dtype=None):
     """A full bank (steady state) of normalized c-channel rows, anchors,
-    prototypes, and negatives drawn from each class's capacity."""
+    prototypes, and negatives drawn from each class's capacity; bf16, or
+    ``dtype``."""
     import torch
-    bf = torch.bfloat16
+    bf = dtype or torch.bfloat16
     k = len(caps)
     bank = torch.randn((k, max(caps), c), generator=gen, device=device,
                        dtype=bf)
@@ -347,30 +389,39 @@ def _staged_rows(neg_idx):
 def _infonce_bounds(a_n, neg_idx):
     """The row counts of one draw, and each InfoNCE kernel's bound
     (_bound_ms): each distinct sampled row read once, the small tensors
-    (anchors, indices, e, invtot, the outputs) once, 2 K Q N C flops."""
+    (anchors, indices, e, invtot, the outputs) once, 2 K Q N C flops (on
+    the tensor cores for bf16 rows, in f32 FMAs for f32 rows)."""
     import torch
     k, q, c = a_n.shape
     n = neg_idx.shape[2]
     distinct = sum(int(torch.unique(neg_idx[i]).numel()) for i in range(k))
     rows = {"rows_distinct": distinct, "rows_fetched": _staged_rows(neg_idx)}
-    row_bytes = c * 2
+    size = a_n.element_size()
+    row_bytes = c * size
     small = neg_idx.numel() * 4 + k * q * n * 4          # indices and e
-    fwd_bytes = distinct * row_bytes + a_n.numel() * 2 + small + k * q * 4
+    fwd_bytes = distinct * row_bytes + a_n.numel() * size + small + k * q * 4
     bwd_bytes = (distinct * row_bytes + small + k * q * 4
                  + k * q * c * 4)
     ops = 2 * k * q * n * c
-    return rows, {"infonce_fwd": _bound_ms(fwd_bytes, ops),
-                  "infonce_bwd": _bound_ms(bwd_bytes, ops)}
+    peak = PEAK_F32_OPS_PER_S if size == 4 else PEAK_BF16_OPS_PER_S
+    return rows, {"infonce_fwd": _bound_ms(fwd_bytes, ops, peak),
+                  "infonce_bwd": _bound_ms(bwd_bytes, ops, peak)}
 
 
 def _infonce_at(a_n, p_n, bank, neg_idx):
     """Both InfoNCE kernels at one draw of neg_idx: each against its plain
-    version (rtol 1e-3: the same bf16 products summed in f32 in another
-    order), two launches bit-identical, the autograd Function against
-    autograd through the plain sampled_infonce, and the times."""
+    version, two launches bit-identical, the autograd Function against
+    autograd through the plain sampled_infonce, and the times. bf16 rows:
+    rtol 1e-3 (the same bf16 products summed in f32 in another order), the
+    gradients, which come back in the anchors' bf16 (ulp 2^-8), rtol 1e-2.
+    f32 rows (the f32 route, "infonce_fwd_f32" / "infonce_bwd_f32"): exact
+    f32 products against the plain versions' with TF32 off, rtol 1e-5
+    throughout."""
     import torch
     from arco_torch.kernels import infonce
     from arco_torch.losses import contrastive
+    f32 = a_n.dtype == torch.float32
+    tol, grad_tol = (1e-5, 1e-5) if f32 else (1e-3, 1e-2)
     it = 1.0 / TEMP
     pos = (a_n.float() * p_n.float()[:, None]).sum(-1) * it
     denom, e = infonce.infonce_fwd(a_n, bank, neg_idx, it)
@@ -378,15 +429,15 @@ def _infonce_at(a_n, p_n, bank, neg_idx):
     torch.cuda.synchronize()
     err = max((denom - denom_ref).abs().max().item(),
               (e - e_ref).abs().max().item())
-    torch.testing.assert_close(denom, denom_ref, rtol=1e-3, atol=0)
-    torch.testing.assert_close(e, e_ref, rtol=1e-3, atol=0)
+    torch.testing.assert_close(denom, denom_ref, rtol=tol, atol=0)
+    torch.testing.assert_close(e, e_ref, rtol=tol, atol=0)
     invtot = 1.0 / (torch.exp(pos - it) + denom_ref)
     ga = infonce.infonce_bwd(e, bank, neg_idx, invtot)
     ga_ref = infonce.infonce_grad_plain(e_ref, bank, neg_idx, invtot)
     torch.cuda.synchronize()
     err_g = (ga - ga_ref).abs().max().item()
-    torch.testing.assert_close(ga, ga_ref, rtol=1e-3,
-                               atol=1e-3 * ga_ref.abs().max().item())
+    torch.testing.assert_close(ga, ga_ref, rtol=tol,
+                               atol=tol * ga_ref.abs().max().item())
     denom2, e2 = infonce.infonce_fwd(a_n, bank, neg_idx, it)
     if not (torch.equal(denom, denom2) and torch.equal(e, e2)
             and torch.equal(ga, infonce.infonce_bwd(e2, bank, neg_idx,
@@ -394,8 +445,6 @@ def _infonce_at(a_n, p_n, bank, neg_idx):
         raise AssertionError("infonce: two launches differ")
     del denom2, e2
 
-    # loss rtol 1e-3; the gradients come back in the anchors' bf16
-    # (ulp 2^-8), so rtol 1e-2
     def loss_and_grads(fn):
         a = a_n.detach().clone().requires_grad_()
         p = p_n.detach().clone().requires_grad_()
@@ -404,14 +453,16 @@ def _infonce_at(a_n, p_n, bank, neg_idx):
         return loss.detach(), a.grad, p.grad
     got = loss_and_grads(infonce.fused_sampled_infonce)
     want = loss_and_grads(contrastive.sampled_infonce)
-    torch.testing.assert_close(got[0], want[0].float(), rtol=1e-3, atol=0)
+    torch.testing.assert_close(got[0], want[0].float(), rtol=tol, atol=0)
     for g, w in zip(got[1:], want[1:]):
-        torch.testing.assert_close(g.float(), w.float(), rtol=1e-2,
-                                   atol=1e-2 * w.float().abs().max().item())
+        torch.testing.assert_close(
+            g.float(), w.float(), rtol=grad_tol,
+            atol=grad_tol * w.float().abs().max().item())
     del denom_ref, e_ref, ga_ref, got, want
 
     rows, bounds = _infonce_bounds(a_n, neg_idx)
     out = {}
+    suffix = "_f32" if f32 else ""
     for name, fn, plain, max_err in (
             ("infonce_fwd",
              lambda: infonce.infonce_fwd(a_n, bank, neg_idx, it),
@@ -422,6 +473,7 @@ def _infonce_at(a_n, p_n, bank, neg_idx):
              lambda: infonce.infonce_grad_plain(e, bank, neg_idx, invtot),
              err_g)):
         bound, by = bounds[name]
+        name += suffix
         out[name] = {"max_abs_err": max_err, "ms": _time_ms(fn, 50),
                      "device_ms": _device_ms(fn, 50),
                      "plain_ms": _time_ms(plain, 5), "bound_ms": bound,
@@ -432,15 +484,16 @@ def _infonce_at(a_n, p_n, bank, neg_idx):
     return out
 
 
-def _infonce_draws(gen, device, caps, c, funcs):
-    """The InfoNCE pair against its plain versions at each draw of
-    ``funcs``: {kernel name: {func: record}}."""
+def _infonce_draws(gen, device, caps, c, funcs, dtype=None):
+    """The InfoNCE pair (bf16, or the route of ``dtype``) against its plain
+    versions at each draw of ``funcs``: {kernel name: {func: record}}."""
     import torch
-    a_n, p_n, bank, draws = _infonce_inputs(gen, device, caps, c, funcs)
-    per_draw = {"infonce_fwd": {}, "infonce_bwd": {}}
+    a_n, p_n, bank, draws = _infonce_inputs(gen, device, caps, c, funcs,
+                                            dtype)
+    per_draw = {}
     for func, neg_idx in draws.items():
         for name, r in _infonce_at(a_n, p_n, bank, neg_idx).items():
-            per_draw[name][func] = r
+            per_draw.setdefault(name, {})[func] = r
         _log(f"infonce (K={len(caps)}, C={c}) at {func} draws: "
              f"{r['rows_distinct']} distinct rows, {r['rows_fetched']} "
              f"staged of {neg_idx.numel()} draws")
@@ -449,42 +502,53 @@ def _infonce_draws(gen, device, caps, c, funcs):
     return per_draw
 
 
-def _pool_sims_at(gen, device, b, f):
+def _pool_sims_at(gen, device, b, f, query_dtype=None, pool_dtype=None):
     """pool_sims on b queries of f features against POOL_K pool rows: each
     query near one pool row, so the sims span [0, ~0.7]; against its plain
-    version (max error at most 1e-3 of the largest |sim|), two launches
-    bit-identical, timed, and torch.matmul timed as the library yardstick
-    ("library_ms" one call, "library_device_ms" as the kernel's
-    "device_ms")."""
+    version, two launches bit-identical, timed, and torch.matmul timed as
+    the library yardstick ("library_ms" one call, "library_device_ms" as
+    the kernel's "device_ms"). bf16 queries and pool by default: max error
+    at most 1e-3 of the largest |sim|. f32 queries (the f32 route) against
+    a ``pool_dtype`` pool: rtol 1e-5 and atol 1e-5 of the largest |sim|
+    (exact products, f32 sums in another order); against a bf16 pool the
+    matmul needs an f32 copy of the pool, which its times include and
+    "widen_ms" / "widen_device_ms" time alone."""
     import torch
     from arco_torch.kernels import pool_sims
     bf = torch.bfloat16
+    qd, pd = query_dtype or bf, pool_dtype or bf
+    f32 = qd == torch.float32
     pool = _l2n_rows(torch.randn((POOL_K, f), generator=gen, device=device,
-                                 dtype=bf))
-    queries = torch.randn((b, f), generator=gen, device=device, dtype=bf)
+                                 dtype=pd))
+    queries = torch.randn((b, f), generator=gen, device=device, dtype=qd)
     for i in range(b):
         queries[i] = (queries[i].float() * (1.0 / math.sqrt(f))
-                      + 0.7 * (i + 1) / b * pool[i % POOL_K].float()).to(bf)
+                      + 0.7 * (i + 1) / b * pool[i % POOL_K].float()).to(qd)
     _l2n_rows(queries)
+    label = f"pool_sims{'_f32' if f32 else ''} ({b} x {f}, {pd} pool)"
     sims = pool_sims.pool_similarities(queries, pool)
     sims_ref = pool_sims.pool_similarities_plain(queries, pool)
     torch.cuda.synchronize()
     err = (sims - sims_ref).abs().max().item()
     scale = sims_ref.abs().max().item()
-    if not err <= 1e-3 * scale:
-        raise AssertionError(f"pool_sims ({b} x {f}): max err {err} > "
-                             f"1e-3 * {scale}")
+    if f32:
+        torch.testing.assert_close(sims, sims_ref, rtol=1e-5,
+                                   atol=1e-5 * scale)
+    elif not err <= 1e-3 * scale:
+        raise AssertionError(f"{label}: max err {err} > 1e-3 * {scale}")
     # the revisiting loss takes top-k of these: the same bits every launch
     if not torch.equal(sims, pool_sims.pool_similarities(queries, pool)):
-        raise AssertionError(f"pool_sims ({b} x {f}): two launches differ")
-    bound, by = _bound_ms((b + POOL_K) * f * 2 + sims.numel() * 4,
-                          2 * b * POOL_K * f)
+        raise AssertionError(f"{label}: two launches differ")
+    bound, by = _bound_ms(
+        b * f * queries.element_size() + POOL_K * f * pool.element_size()
+        + sims.numel() * 4, 2 * b * POOL_K * f,
+        PEAK_F32_OPS_PER_S if f32 else PEAK_BF16_OPS_PER_S)
 
     def sims_fn():
         return pool_sims.pool_similarities(queries, pool)
 
     def matmul():
-        return torch.matmul(queries, pool.t())
+        return torch.matmul(queries, pool.to(qd).t())
     out = {"max_abs_err": err, "ms": _time_ms(sims_fn, 20),
            "device_ms": _device_ms(sims_fn, 20),
            "plain_ms": _time_ms(
@@ -492,10 +556,17 @@ def _pool_sims_at(gen, device, b, f):
            "bound_ms": bound, "bound_by": by,
            "library_ms": _time_ms(matmul, 20),
            "library_device_ms": _device_ms(matmul, 20)}
-    _log(f"pool_sims ({b} x {f}): max err {err:.3g} of max |sims| "
+    widen = ""
+    if pd != qd:
+        out["widen_ms"] = _time_ms(lambda: pool.to(qd), 20)
+        out["widen_device_ms"] = _device_ms(lambda: pool.to(qd), 20)
+        widen = (f", of which the pool's widening {out['widen_ms']:.4f} "
+                 f"(device {out['widen_device_ms']:.4f})")
+    _log(f"{label}: max err {err:.3g} of max |sims| "
          f"{scale:.3g}; {out['ms']:.4f} ms (device {out['device_ms']:.4f}), "
          f"bound {bound:.4f}, plain {out['plain_ms']:.3f}, matmul "
-         f"{out['library_ms']:.4f} (device {out['library_device_ms']:.4f})")
+         f"{out['library_ms']:.4f} (device {out['library_device_ms']:.4f})"
+         + widen)
     del pool, queries
     torch.cuda.empty_cache()
     return out
@@ -592,6 +663,15 @@ def _to(tree, device):
     return tree.to(device)
 
 
+# phase 4's small stage-2 configuration
+SMALL_ARCO = dict(K=4, num_queries=32, num_negatives=64, memobank_size=256,
+                  memobank_size_bg=512, memobank_enqueue=64, topk=2)
+BF16_LOSS_TOL = dict(rtol=5e-2, atol=2e-2)
+# f32 on the card against f32 on the CPU: tests/test_torch_port_step.py's
+# LOSS_TOL (the port against JAX, both f32)
+F32_LOSS_TOL = dict(rtol=1e-4, atol=1e-6)
+
+
 def phase_reference(device):
     """One small step on ``device`` (bf16 autocast, the kernels) against the
     same step on the CPU in f32 with the plain versions: the same initial
@@ -600,13 +680,24 @@ def phase_reference(device):
     autocast (8-bit mantissa) against f32 leaves logit errors of ~1e-2,
     which move the O(0.1) KL of the eqv term by about as much and the O(1)
     terms by a few percent at most."""
+    _step_reference(device, "bfloat16", BF16_LOSS_TOL)
+    _pretrain_reference(device)
+    _remat_reference(device, SMALL_ARCO)
+
+
+def _step_reference(device, compute_dtype, tol):
+    """Phase 4's small step on ``device`` in ``compute_dtype`` ("bfloat16":
+    autocast; "float32") against the CPU's in f32, strong aug off, then at
+    the defaults, each loss term within ``tol``; returns the card's launch
+    counts over the two steps."""
     import torch
     from arco_torch.config import ArcoConfig
+    from arco_torch.kernels import launch_counts, reset_launch_counts
     from arco_torch.models import net_factory
     from arco_torch.train import arco2d
     hw, b, nc = 64, 2, 4
-    small = dict(K=4, num_queries=32, num_negatives=64, memobank_size=256,
-                 memobank_size_bg=512, memobank_enqueue=64, topk=2)
+    small = SMALL_ARCO
+    counts = {}
 
     def build(cfg, dev, dtype):
         torch.manual_seed(1)
@@ -623,7 +714,7 @@ def phase_reference(device):
         cfg = ArcoConfig(use_photometric=strong, use_adv_morph=strong,
                          **small)
         ref_state, ref_step = build(cfg, "cpu", torch.float32)
-        state, step = build(cfg, device, torch.bfloat16)
+        state, step = build(cfg, device, getattr(torch, compute_dtype))
         state.random_pool.copy_(ref_state.random_pool)
         gen = torch.Generator().manual_seed(2)
         image_l, label_l = _synthetic_batch(b, hw, gen, "cpu")
@@ -631,16 +722,19 @@ def phase_reference(device):
         batch = {"image_l": image_l, "label_l": label_l, "image_u": image_u}
         draws = _draws(cfg, b, b, hw, nc, gen)
         want = ref_step(ref_state, batch, draws)
+        reset_launch_counts()
         got = step(state, _to(batch, device), _to(draws, device))
-        label = "defaults" if strong else "strong aug off"
+        label = ("defaults" if strong else "strong aug off") + \
+            ("" if compute_dtype == "bfloat16" else f", {compute_dtype}")
+        for k, n in launch_counts().items():
+            counts[k] = counts.get(k, 0) + n
         for k in ("loss", "reco_loss", "loss_q", "unsup_loss", "loss_ce",
                   "loss_dice", "loss_eqv"):
             g, w = float(got[k]), float(want[k])
-            _log(f"  reference ({label}) {k}: card {g:.6f} cpu {w:.6f}")
-            if not abs(g - w) <= 2e-2 + 5e-2 * abs(w):
+            _log(f"  reference ({label}) {k}: card {g:.8g} cpu {w:.8g}")
+            if not abs(g - w) <= tol["atol"] + tol["rtol"] * abs(w):
                 raise AssertionError(f"{label} {k}: card {g} vs cpu {w}")
-    _pretrain_reference(device)
-    _remat_reference(device, small)
+    return counts
 
 
 def _pretrain_reference(device):
@@ -831,10 +925,7 @@ def phase_main_path(device):
     if bool((state.memobank.ptr == 1).all()):
         raise AssertionError("no keys reached the memory bank")
     _log(f"launches over {2 * STEPS} steps: {counts}")
-    for name, n in counts.items():
-        if n != 2 * STEPS:
-            raise AssertionError(f"{name} launched {n} times in "
-                                 f"{2 * STEPS} steps")
+    _check_launches(f"{2 * STEPS} steps", counts, 2 * STEPS)
     for label in steps:
         _log(f"step ms ({label}) {[round(t, 2) for t in step_ms[label]]}")
     _log(f"peak memory {peak / 2**30:.2f} GiB")
@@ -933,10 +1024,7 @@ def phase_cli(device, workdir, root):
     counts = launch_counts()
     _log(f"cli: 4 steps in {t1 - t0:.1f} s, resumed to 6 in {t2 - t1:.1f} s "
          f"(set-up included); launches {counts}")
-    for name, n in counts.items():
-        if n != 6:
-            raise AssertionError(f"cli: {name} launched {n} times in 6 "
-                                 "steps")
+    _check_launches("cli, 6 steps", counts, 6)
     run = snap("Synapse/smoke")
     log = (run / "log.txt").read_text()
     for want in (f"device data path: 44 + 20 slices staged on {device}",
@@ -1067,10 +1155,7 @@ def phase_two_stage(device, workdir, root):
         raise AssertionError(f"stage 2: metrics {rows2}")
     _log(f"stage 2 from the pretrain's iter_6: losses "
          f"{[r['loss'] for r in rows2]}; launches {counts}")
-    for name, n in counts.items():
-        if n != 2:
-            raise AssertionError(f"stage 2: {name} launched {n} times in 2 "
-                                 "steps")
+    _check_launches("stage 2, 2 steps", counts, 2)
     return counts, {"pretrain_images_per_sec": ips,
                     "pretrain_step_ms": step_ms,
                     "pretrain_peak_gib": peak / 2**30,
@@ -1249,10 +1334,7 @@ def phase_main_path_3d(device):
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     _log(f"3D launches over {2 * STEPS} steps: {counts}")
-    for name, n in counts.items():
-        if n != 2 * STEPS:
-            raise AssertionError(f"3D: {name} launched {n} times in "
-                                 f"{2 * STEPS} steps")
+    _check_launches(f"3D, {2 * STEPS} steps", counts, 2 * STEPS)
     if state.step != 2 * STEPS or bool((state.memobank.ptr != 1).any()):
         # 2 classes: the negative mask is empty (the labeled pixels of a
         # class are never its negatives), so no key is enqueued
@@ -1307,10 +1389,7 @@ def phase_cli_3d(device, workdir):
     counts = launch_counts()
     _log(f"3D cli: 4 steps in {t1 - t0:.1f} s, resumed to 6 in "
          f"{t2 - t1:.1f} s (set-up included); launches {counts}")
-    for name, n in counts.items():
-        if n != 6:
-            raise AssertionError(f"3D cli: {name} launched {n} times in 6 "
-                                 "steps")
+    _check_launches("3D cli, 6 steps", counts, 6)
     log = (snap / "log.txt").read_text()
     for want in (f"device data path: {CLI3D_LABELED} + "
                  f"{CLI3D_VOLUMES - CLI3D_LABELED} volumes staged on "
@@ -1488,10 +1567,7 @@ def phase_pretrain_3d(device, workdir):
         raise AssertionError(f"3D stage 2: metrics {rows2}")
     _log(f"3D stage 2 from the pretrain's iter_6: losses "
          f"{[r['loss'] for r in rows2]}; launches {counts}")
-    for name, n in counts.items():
-        if n != 2:
-            raise AssertionError(f"3D stage 2: {name} launched {n} times "
-                                 "in 2 steps")
+    _check_launches("3D stage 2, 2 steps", counts, 2)
     return counts, vols, {"pretrain_volumes_per_sec": vps,
                           "pretrain_step_ms": step_ms,
                           "pretrain_peak_gib": peak / 2**30,
@@ -1773,10 +1849,7 @@ def phase_zoo(device, workdir, root):
             for line in (run / "metrics.jsonl").read_text().splitlines()]
     if len(rows) != 6 or not all(math.isfinite(r["loss"]) for r in rows):
         raise AssertionError(f"zoo: unet_stego metrics {rows}")
-    for name, n in counts.items():
-        if n != 6:
-            raise AssertionError(f"zoo: {name} launched {n} times in 6 "
-                                 "unet_stego steps")
+    _check_launches("zoo, 6 unet_stego steps", counts, 6)
     ips = [r["images_per_sec"] for r in rows]
     bs = TrainConfig().data.batch_size
     out["unet_stego_cli"] = {"images_per_sec": ips,
@@ -2291,10 +2364,7 @@ def _natural_run(argv, steps, label):
     if not rows or not all(math.isfinite(v) for r in rows
                            for v in r.values()):
         raise AssertionError(f"{label}: metrics {rows}")
-    for name, n in counts.items():
-        if n != steps:
-            raise AssertionError(f"{label}: {name} launched {n} times in "
-                                 f"{steps} steps")
+    _check_launches(f"{label}, {steps} steps", counts, steps)
     ips = [r["images_per_sec"] for r in rows]
     _log(f"{label}: {steps} steps in {wall:.1f} s (set-up included); step "
          f"ms {[round(t, 2) for t in times]}; img/s per log interval "
@@ -2958,12 +3028,18 @@ DP_STATE_BF16_TOL = {"model": 3e-3, "model_bn": 1.5e-2, "ema_model": 5e-5,
                      "ema_model_bn": 3e-3, "feature_extractor": 6e-5,
                      "k_feature_extractor": 1e-6, "q_representation": 1.5e-4,
                      "bank": 0.15, "pool": 8e-2}
-# f32, one step without the contrastive and revisiting terms: the feature
-# extractor and the query head take no gradient and the bank is not
-# written, so the student, the teacher and the pool are held (the pool is
-# bf16: one ulp)
+# f32, one step with every term on (the kernels' f32 routes on the card):
+# the feature extractor, the query head and the bank are held too, at
+# limits ~10-50x the readings of the first such run (feature_extractor
+# 5.96e-8, q_representation 8.3e-8, bank 2.09e-7 apart; moved 1.3e-4,
+# 2.3e-4, 1). The pool is bf16: 2 ulps (0.00355 apart). The key feature
+# extractor is not held: one f32 step moves its EMA by one f32 ulp of its
+# largest value (5.96e-8), so no limit tells a wrong state from a right
+# one; the two ranks' bit-equal sums still cover it.
 DP_STATE_F32_TOL = {"model": 1e-5, "model_bn": 1e-6, "ema_model": 1e-6,
-                    "ema_model_bn": 1e-6, "pool": 2.0 ** -7}
+                    "ema_model_bn": 1e-6, "feature_extractor": 1e-6,
+                    "q_representation": 1e-6, "bank": 1e-5,
+                    "pool": 2.0 ** -7}
 DP_MODULES = ("model", "ema_model", "feature_extractor",
               "k_feature_extractor", "q_representation")
 
@@ -2971,17 +3047,16 @@ DP_MODULES = ("model", "ema_model", "feature_extractor",
 def _dp_build(device, b_l, b_u, dtype, mesh=None):
     """Phase 5's configuration at b_l + b_u (the global batch): the step
     (over ``mesh``, or mesh-less) and its state with full banks of
-    normalized rows, from seeds, the same in every process. In f32 the
-    contrastive and revisiting terms are off: on the card their kernels
-    take bf16 only (and refuse f32), so the f32 leg holds everything but
-    the kernels, the bank and the pool, the bf16 leg those too."""
+    normalized rows, from seeds, the same in every process. Every term is
+    on in both dtypes: in f32 the contrastive and revisiting terms run the
+    kernels' f32 routes (f32 anchors and bank, f32 reps against the bf16
+    pool), in bf16 their bf16 routes."""
     import torch
     from arco_torch.config import ArcoConfig, DataConfig
     from arco_torch.models import net_factory
     from arco_torch.train import arco2d
     data = DataConfig()
-    kernels = dtype != torch.float32
-    cfg = ArcoConfig(compute_contrastive=kernels, compute_revisit=kernels)
+    cfg = ArcoConfig()
     hw = data.patch_size[0]
     torch.manual_seed(0)
     model = net_factory("unet", in_chns=data.in_channels,
@@ -3106,9 +3181,11 @@ def _dp_compare(label, got, want, init, metric_tol, limits):
     for name in w_parts:
         worst[name] = apart(g_parts[name], w_parts[name])
         worst[name + "_moved"] = apart(i_parts[name], w_parts[name])
-        if name not in limits:
-            continue
-        tol = limits[name]
+    _log(f"  {label}: metrics within {worst['metric_rel']:.3g} (relative); "
+         f"state apart by / moved by, of each part's largest |value|: "
+         + ", ".join(f"{n} {worst[n]:.3g} / {worst[n + '_moved']:.3g}"
+                     for n in w_parts))
+    for name, tol in limits.items():
         if not worst[name] <= tol:
             raise AssertionError(f"{label} {name}: {worst[name]} of its "
                                  f"largest |value| apart, limit {tol}")
@@ -3116,10 +3193,6 @@ def _dp_compare(label, got, want, init, metric_tol, limits):
             raise AssertionError(f"{label} {name}: the steps move it by "
                                  f"{worst[name + '_moved']}, within the "
                                  f"limit {tol}: the check is blind")
-    _log(f"  {label}: metrics within {worst['metric_rel']:.3g} (relative); "
-         f"state apart by / moved by, of each part's largest |value|: "
-         + ", ".join(f"{n} {worst[n]:.3g} / {worst[n + '_moved']:.3g}"
-                     for n in w_parts))
     return worst
 
 
@@ -3194,10 +3267,7 @@ def _dp_one_nccl_rank(device, workdir):
              f"({t['busy_share']:.3f}); most launched: {t['by_name']}")
     worst = _dp_compare("(a) one NCCL rank vs mesh-less", got, want, init,
                         DP_BF16_TOL, DP_STATE_BF16_TOL)
-    for name, n in counts.items():
-        if n != DP_STEPS:
-            raise AssertionError(f"(a) {name} launched {n} times in "
-                                 f"{DP_STEPS} steps")
+    _check_launches(f"(a) {DP_STEPS} steps", counts, DP_STEPS)
     del state, step, state0, step0, want, got
     torch.cuda.empty_cache()
     return counts, {"step_ms": dp_ms, "meshless_step_ms": ms,
@@ -3258,7 +3328,8 @@ def _dp_two_gloo_ranks(device, workdir):
     """(b) two gloo ranks on the one card at a global bs of 2 * (B_L +
     B_U), B_L + B_U a rank, against one process over that batch: one f32
     step (TF32 off) at DP_F32_TOL, then DP_STEPS bf16 steps at
-    DP_BF16_TOL. Returns each rank's launches and the numbers."""
+    DP_BF16_TOL. Returns each rank's launches ({"f32": [...], "bf16":
+    [...]}) and the numbers."""
     import torch
     import torch.multiprocessing as mp
     want = {}
@@ -3279,7 +3350,7 @@ def _dp_two_gloo_ranks(device, workdir):
     ranks = [torch.load(f"{workdir}/dp_rank{r}.pt", weights_only=False)
              for r in range(2)]
     out = {"spawn_s": spawn_s}
-    launches = []
+    launches = {}
     for label, tol, limits in (("f32", DP_F32_TOL, DP_STATE_F32_TOL),
                                ("bf16", DP_BF16_TOL, DP_STATE_BF16_TOL)):
         steps = len(want[label]["metrics"])
@@ -3291,10 +3362,9 @@ def _dp_two_gloo_ranks(device, workdir):
             if rec[label]["metrics"] != ranks[0][label]["metrics"]:
                 raise AssertionError(f"(b) {label}: rank {r}'s metrics "
                                      f"differ from rank 0's")
-            for name, n in rec[label]["launches"].items():
-                if n != (steps if label == "bf16" else 0):
-                    raise AssertionError(f"(b) {label} rank {r}: {name} "
-                                         f"launched {n} times in {steps}")
+            _check_launches(f"(b) {label} rank {r}, {steps} steps",
+                            rec[label]["launches"], steps,
+                            BF16_ROUTES if label == "bf16" else F32_ROUTES)
             _log(f"  (b) {label} rank {r}: step ms "
                  f"{[round(t, 2) for t in rec[label]['ms']]}, peak "
                  f"{rec[label]['peak_gib']:.2f} GiB, launches "
@@ -3305,8 +3375,7 @@ def _dp_two_gloo_ranks(device, workdir):
                       "ranks": [{k: rec[label][k] for k in
                                  ("ms", "peak_gib", "launches")}
                                 for rec in ranks]}
-        if label == "bf16":
-            launches = [rec[label]["launches"] for rec in ranks]
+        launches[label] = [rec[label]["launches"] for rec in ranks]
     del want, ranks
     torch.cuda.empty_cache()
     return launches, out
@@ -3341,6 +3410,183 @@ def phase_data_parallel(device, workdir):
            "dryrun_s": dryrun_s, "s": time.perf_counter() - t_start}
     _log(f"phase 15 (data parallel) in {out['s']:.1f} s")
     return counts, launches_ranks, rows2, out
+
+
+F32_STEPS, F32_CLI_STEPS = 3, 4
+
+
+def _f32_kernels(device):
+    """(a) The f32 routes against their plain versions at the f32 steps'
+    shapes (TF32 off): the InfoNCE pair at the 2D (K 4, C 496) and 3D (K 2,
+    C 16) shapes over full f32 banks at 'smc' draws, pool_sims on 2 x 2 f32
+    reps against the 36-row pool in bf16 (the CLIs' default) and in f32,
+    at the 2D and 3D widths. {route: {"2d"/"3d": record}}, pool_sims_f32's
+    records by pool under "bf16_pool" / "f32_pool"."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(16)
+    f32 = torch.float32
+    out = {}
+    for shape, caps, c in (("2d", CAPS, C), ("3d", CAPS_3D, C_3D)):
+        per_draw = _infonce_draws(gen, device, caps, c, (MAIN_DRAW,), f32)
+        for name, rec in per_draw.items():
+            out.setdefault(name, {})[shape] = {**rec[MAIN_DRAW],
+                                               "library_ms": None}
+    for shape, f in (("2d", C * HW * HW), ("3d", C_3D * math.prod(PATCH_3D))):
+        for pool, dtype in (("bf16_pool", torch.bfloat16), ("f32_pool", f32)):
+            out.setdefault("pool_sims_f32", {}).setdefault(shape, {})[pool] \
+                = _pool_sims_at(gen, device, 2 * B_U, f, f32, dtype)
+    return out
+
+
+def _f32_main_path(device):
+    """(c) 3 steps of phase 5's configuration (U-Net, 256², bs 2+2, the
+    ArcoConfig defaults, full banks) at f32: every loss finite, each f32
+    route launched once a step and no bf16 route, ms a step and peak
+    memory; the revisiting loss hands pool_sims the state's bf16 pool
+    itself (its storage, no f32 copy) with the f32 reps."""
+    import torch
+    from arco_torch.config import ArcoConfig, DataConfig
+    from arco_torch.kernels import launch_counts, reset_launch_counts
+    from arco_torch.losses import consistency
+    from arco_torch.models import net_factory
+    from arco_torch.train import arco2d
+    data, cfg = DataConfig(), ArcoConfig()
+    hw = data.patch_size[0]
+    b_l, b_u = data.labeled_bs, data.batch_size - data.labeled_bs
+    torch.manual_seed(0)
+    model = net_factory("unet", in_chns=data.in_channels,
+                        class_num=data.num_classes)
+    mods = arco2d.make_arco_modules(model, hw, hw, batch_size=b_l,
+                                    total_batch=b_l + b_u)
+    state = arco2d.init_arco_state(mods, cfg, (b_l, 1, hw, hw), seed=0,
+                                   device=device,
+                                   compute_dtype=torch.float32)
+    step = arco2d.make_arco_step(mods, cfg, num_classes=data.num_classes,
+                                 max_iterations=30000, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    bank = state.memobank
+    for k in range(bank.num_classes):
+        _l2n_rows(bank.data[k].normal_(generator=gen))
+    bank.count = torch.tensor(bank.capacities, dtype=torch.int32,
+                              device=device)
+    batches = []
+    for _ in range(F32_STEPS):
+        image_l, label_l = _synthetic_batch(b_l, hw, gen, device)
+        image_u, _ = _synthetic_batch(b_u, hw, gen, device)
+        batches.append({"image_l": image_l, "label_l": label_l,
+                        "image_u": image_u})
+    _log(f"f32 state: pool {tuple(state.random_pool.shape)} "
+         f"{state.random_pool.dtype}, bank {tuple(bank.data.shape)} "
+         f"{bank.data.dtype}")
+    handed = []
+    sims_fn = consistency.pool_similarities
+
+    def spy(queries, pool):
+        handed.append((queries.dtype, pool.dtype,
+                       pool.data_ptr() == state.random_pool.data_ptr()))
+        return sims_fn(queries, pool)
+    consistency.pool_similarities = spy
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        step_ms, metrics = [], []
+        for batch in batches:
+            t0 = time.perf_counter()
+            metrics.append(step(state, batch))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        consistency.pool_similarities = sims_fn
+    _check_steps("f32", metrics, step_ms, b_l, hw)
+    _check_launches(f"f32, {F32_STEPS} steps", counts, F32_STEPS,
+                    F32_ROUTES)
+    if handed != [(torch.float32, torch.bfloat16, True)] * F32_STEPS:
+        raise AssertionError(f"f32: pool_sims was handed {handed}")
+    _log(f"f32 step ms {[round(t, 2) for t in step_ms]}, peak memory "
+         f"{peak / 2**30:.2f} GiB; launches {counts}; the bf16 pool read in "
+         f"place")
+    del state, step, batches, metrics, bank, mods
+    torch.cuda.empty_cache()
+    return counts, {"step_ms": step_ms, "peak_gib": peak / 2**30}
+
+
+def _f32_clis(device, workdir, root, vols):
+    """(d) ``train_arco_2d --compute_dtype float32`` for 4 steps on phase
+    6's npz tree and (e) ``train_arco_3d --compute_dtype float32`` for 4
+    steps on in-memory volumes (phase 9's), each f32 route once a step and
+    no bf16 route, every logged loss finite."""
+    import pickle
+    import torch
+    from arco_torch.cli import train_arco_2d, train_arco_3d
+    from arco_torch.data.datasets import InMemoryVolumes
+    from arco_torch.kernels import launch_counts, reset_launch_counts
+    model_dir = str(workdir / "model_f32")
+    steps = str(F32_CLI_STEPS)
+    out, counts = {}, {}
+    for label in ("2d", "3d"):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        if label == "2d":
+            train_arco_2d.main([
+                "--root_path", root, "--exp", "Synapse/f32", "--labeled_num",
+                "1", "--snapshot_dir", model_dir, "--max_iterations", steps,
+                "--log_every", "1", "--ckpt_every", steps,
+                "--compute_dtype", "float32"])
+            run = Path(model_dir) / "Synapse/f32_1_labeledfinal" / "unet"
+        else:
+            cfg, snap = train_arco_3d.parse([
+                "--exp", "LA/f32", "--labeled_num", str(CLI3D_LABELED),
+                "--snapshot_dir", model_dir, "--max_iterations", steps,
+                "--log_every", "2", "--ckpt_every", steps,
+                "--compute_dtype", "float32"])
+            train_arco_3d.train(cfg, snap, dataset=(
+                InMemoryVolumes(vols[:CLI3D_LABELED], PATCH_3D),
+                InMemoryVolumes(vols[CLI3D_LABELED:], PATCH_3D)))
+            run = Path(snap)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts[label] = launch_counts()
+        with open(run / "record.pkl", "rb") as f:
+            history = pickle.load(f)
+        rows = [json.loads(line)
+                for line in (run / "metrics.jsonl").read_text().splitlines()]
+        if len(history) != F32_CLI_STEPS \
+                or not all(math.isfinite(v) for v in history) \
+                or not all(math.isfinite(r["loss"]) for r in rows):
+            raise AssertionError(f"f32 {label} cli: record.pkl {history}, "
+                                 f"metrics {rows}")
+        _check_launches(f"f32 {label} cli, {steps} steps", counts[label],
+                        F32_CLI_STEPS, F32_ROUTES)
+        rate = "images_per_sec" if label == "2d" else "volumes_per_sec"
+        out[label] = {"s": seconds, rate: [r[rate] for r in rows],
+                      "loss": history}
+        _log(f"f32 {label} cli: {steps} steps in {seconds:.1f} s (set-up "
+             f"included), {rate} {[round(r[rate], 3) for r in rows]}, "
+             f"losses {[round(v, 4) for v in history]}; launches "
+             f"{counts[label]}")
+    return counts, out
+
+
+def phase_f32(device, workdir, root, vols):
+    """Phase 16, stage 2 at --compute_dtype float32 through the kernels'
+    f32 routes: (a) the routes against their plain versions at the 2D and
+    3D shapes; (b) phase 4's small step at f32 on the card against the
+    CPU's at F32_LOSS_TOL, strong aug off and at the defaults; (c) 3
+    full-width steps of phase 5's configuration; (d) the 2D and (e) the 3D
+    CLI at --compute_dtype float32, 4 steps each."""
+    t_start = time.perf_counter()
+    kernels = _f32_kernels(device)
+    ref_counts = _step_reference(device, "float32", F32_LOSS_TOL)
+    _check_launches("f32 reference, 2 steps", ref_counts, 2, F32_ROUTES)
+    counts, main_path = _f32_main_path(device)
+    cli_counts, clis = _f32_clis(device, workdir, root, vols)
+    out = {"main_path": main_path, "cli": clis,
+           "s": time.perf_counter() - t_start}
+    _log(f"phase 16 (f32) in {out['s']:.1f} s")
+    return counts, cli_counts, kernels, out
 
 
 def main():
@@ -3384,6 +3630,8 @@ def main():
         natural_counts, natural = phase_natural(device, workdir)
         pretrained = phase_pretrained(device, workdir, root)
         serving = phase_serving(device, workdir)
+        f32_counts, f32_cli_counts, f32_kernels, f32 = phase_f32(
+            device, workdir, root, vols)
         dp_counts, dp_rank_counts, rows2, data_parallel = \
             phase_data_parallel(device, workdir)
     for k in kernels:
@@ -3397,11 +3645,33 @@ def main():
         if name == "pool_sims":
             k["rows2"] = rows2
         k["launches_data_parallel_ranks"] = [c[name] for c in
-                                             dp_rank_counts]
+                                             dp_rank_counts["bf16"]]
         k["natural"] = natural["kernels"][name]
         k["3d"] = {**kernels_3d[name], "launches": counts_3d[name],
                    "launches_cli": cli3d_counts[name],
                    "launches_two_stage": two3d_counts[name]}
+    # the f32 routes: the top-level numbers at the 2D shape (pool_sims
+    # against the bf16 pool), launches from phase 16c
+    for name, source, replaces in (
+            ("infonce_fwd_f32", "infonce.cu", "infonce.py:127"),
+            ("infonce_bwd_f32", "infonce.cu", "infonce.py:147"),
+            ("pool_sims_f32", "pool_sims.cu", "pool_sims.py:54")):
+        rec = f32_kernels[name]
+        main2d = rec["2d"]["bf16_pool"] if name == "pool_sims_f32" \
+            else rec["2d"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"arco_torch/kernels/csrc/{source}",
+            "replaces": f"arco_tpu/ops/pallas/{replaces}",
+            **{key: main2d[key] for key in (
+                "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms")},
+            "launches": f32_counts[name],
+            "launches_cli": f32_cli_counts["2d"][name],
+            "launches_data_parallel_ranks": [c[name] for c in
+                                             dp_rank_counts["f32"]],
+            "shapes": rec,
+            "3d": {"launches_cli": f32_cli_counts["3d"][name]}})
     print(json.dumps({"main_path": main_path, "cli": cli,
                       "two_stage": two_stage, "main_path_3d": main_path_3d,
                       "cli_3d": cli_3d, "two_stage_3d": two_stage_3d,
@@ -3409,7 +3679,7 @@ def main():
                       "natural": {k: v for k, v in natural.items()
                                   if k != "kernels"},
                       "pretrained": pretrained, "serving": serving,
-                      "data_parallel": data_parallel}))
+                      "data_parallel": data_parallel, "f32": f32}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

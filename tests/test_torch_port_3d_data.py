@@ -3,9 +3,11 @@
 the synthetic tree itself, the LA transforms (rot90 + flip, pad and crop),
 ``LAHeartDataset`` batches through the host pipeline, ``DeviceVolumeBank``
 (on CPU tensors here; tests/test_torch_port_cuda.py runs it on the card)
-and ``two_stream_device_batches`` over two volume banks.
+and ``two_stream_device_batches`` over two volume banks; and
+``BraTS2019Dataset`` on a BraTS-layout h5 tree written here.
 """
 
+import h5py
 import numpy as np
 import pytest
 import torch
@@ -154,3 +156,43 @@ def test_volume_bank_refuses_what_rot90_would_reshape():
          for s in ((40, 40, 20), (40, 40, 24))], PATCH)
     with pytest.raises(ValueError, match="uniform"):
         device_bank.DeviceVolumeBank.from_dataset(ds, PATCH, "cpu")
+
+
+def _brats_tree(root, sizes):
+    """A BraTS-layout tree: data/<case>.h5 (image f32, label uint8 in
+    0..3) for the cases of ``sizes``, the first four listed in train.txt
+    and the rest in val.txt."""
+    rs = np.random.RandomState(9)
+    (root / "data").mkdir(parents=True)
+    cases = [f"BraTS19_case_{i:03d}" for i in range(len(sizes))]
+    for case, size in zip(cases, sizes):
+        with h5py.File(root / "data" / f"{case}.h5", "w") as f:
+            f["image"] = rs.randn(*size).astype(np.float32)
+            f["label"] = rs.randint(0, 4, size).astype(np.uint8)
+    (root / "train.txt").write_text("\n".join(cases[:4]) + "\n")
+    (root / "val.txt").write_text("\n".join(cases[4:]) + "\n")
+    return str(root)
+
+
+@pytest.mark.parametrize("num", [None, 3])
+def test_brats2019_dataset_equals_jax(tmp_path, num):
+    """The case lists, ``num`` (a train prefix, ignored on val) and the
+    samples: LA's rot90 + flip, then the crop to the default 96^3 patch,
+    one seeded RandomState through both packages; one case smaller than
+    the patch in every dim (padded), one larger."""
+    root = _brats_tree(tmp_path, [(100, 100, 98), (40, 40, 20),
+                                  (96, 96, 96), (104, 104, 97),
+                                  (50, 50, 30)])
+    for split in ("train", "val"):
+        ds = datasets.BraTS2019Dataset(root, split, num=num)
+        jds = jdatasets.BraTS2019Dataset(root, split, num=num)
+        assert ds.sample_list == jds.sample_list
+        assert ds.patch_size == jds.patch_size == (96, 96, 96)
+        assert len(ds) == (1 if split == "val" else num or 4)
+        rng, jrng = np.random.RandomState(3), np.random.RandomState(3)
+        for i in range(len(ds)):
+            got, want = ds.get(i, rng), jds.get(i, jrng)
+            assert got["image"].dtype == want["image"].dtype
+            for k in ("image", "label", "idx"):
+                np.testing.assert_array_equal(got[k], want[k])
+        assert rng.randint(1 << 30) == jrng.randint(1 << 30)

@@ -14,6 +14,10 @@ nothing of JAX, so it also runs where JAX is not installed:
 
 Tolerances: the kernels and the plain versions read the same bf16 values
 and accumulate in f32 in another order, so rtol 1e-3 on the f32 outputs;
+the f32 routes (f32 anchors and bank, f32 queries against a bf16 or f32
+pool) sum exact f32 products in another order than the plain versions run
+with TF32 off, so rtol 1e-5 (and atol 1e-5 of the largest |value| for ga
+and the sims);
 gradients that come back in the anchors' bf16 (ulp 2^-8) are held to
 rtol 1e-2. Batches from the bank are compared exactly. The pretrain step
 in bf16 autocast is held to the f32 CPU step at rtol 5e-2 / atol 2e-2 per
@@ -202,7 +206,7 @@ def test_infonce_pair_at_a_stage_edge(cuda, c, n, fwd, off):
     rows (C 16, 24) and tens (C 256, 496)."""
     from arco_torch.kernels import build
     k, q = 2, 40
-    rows = build.load_library().arco_infonce_rows(k, q, n, c, fwd)
+    rows = build.load_library().arco_infonce_rows(k, q, n, c, fwd, 0)
     a_n, _, bank, _ = _infonce_inputs(cuda, "smc", q, n, k=k, c=c)
     idx = torch.from_numpy(
         _staged_heads_idx(k, q, n, c, rows + off, CAP)).to(cuda)
@@ -325,6 +329,213 @@ def test_pool_sims_at_a_ranks_share_of_the_2d_step(cuda, b):
     torch.testing.assert_close(got, want, rtol=1e-3,
                                atol=1e-3 * want.abs().max().item())
     assert torch.equal(got, pool_sims.pool_similarities(q, p))
+
+
+F32_TOL = dict(rtol=1e-5, atol=0.0)
+CAPS_2D, CAPS_3D = (50000, 30000, 30000, 30000), (50000, 30000)
+
+
+@pytest.fixture
+def no_tf32(cuda):
+    """The plain versions' f32 products in f32 (no TF32), as the f32 routes
+    compute them."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+def _f32_inputs(device, func="smc", q=Q, n=N, k=K, c=C, caps=None, seed=0):
+    """f32 normalized anchors and bank over classes of capacities ``caps``
+    (CAP each by default); neg_idx as _infonce_inputs draws it."""
+    caps = caps or (CAP,) * k
+    gen = torch.Generator(device=device).manual_seed(seed)
+    norm = lambda shape: torch.nn.functional.normalize(
+        torch.randn(shape, generator=gen, device=device), dim=-1)
+    a_n, bank = norm((k, q, c)), norm((k, max(caps), c))
+    ranks = sampling.draw_indices(torch.tensor(caps, device=device), q * n,
+                                  func=func, generator=gen, device=device)
+    idx = ranks.reshape(k, n, q).transpose(1, 2).to(torch.int32).contiguous()
+    return a_n, bank, idx
+
+
+def _f32_pair_against_plain(a_n, bank, idx):
+    """The f32 pair against its plain versions at F32_TOL, each call one
+    launch of its f32 route and none of the bf16 route."""
+    invtot = torch.rand(a_n.shape[:2], device=a_n.device)
+    before = launch_counts()
+    denom, e = infonce.infonce_fwd(a_n, bank, idx, 1 / T)
+    ga = infonce.infonce_bwd(e, bank, idx, invtot)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        **{k: 0 for k in after}, "infonce_fwd_f32": 1, "infonce_bwd_f32": 1}
+    denom_ref, e_ref = infonce.infonce_denom_plain(a_n, bank, idx, 1 / T)
+    torch.testing.assert_close(denom, denom_ref, **F32_TOL)
+    torch.testing.assert_close(e, e_ref, **F32_TOL)
+    want = infonce.infonce_grad_plain(e_ref, bank, idx, invtot)
+    torch.testing.assert_close(ga, want, rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
+    return denom, e, ga, invtot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("func", ["uniform", "smc", "asmc"])
+def test_infonce_f32_pair_matches_plain(no_tf32, func):
+    """Q = 40 and N = 61: ragged against the 16-query groups and the
+    chunks of samples."""
+    _f32_pair_against_plain(*_f32_inputs(no_tf32, func, q=40, n=61))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,caps", [(496, CAPS_2D), (16, CAPS_3D)],
+                         ids=["2d", "3d"])
+def test_infonce_f32_pair_at_the_main_paths_shapes(no_tf32, c, caps):
+    """The f32 step's pair: 256 anchors x 512 'smc' negatives over full
+    banks, 4 classes of 496 channels (2D) or 2 of 16 (3D); two launches
+    agree bit for bit."""
+    a_n, bank, idx = _f32_inputs(no_tf32, "smc", 256, 512, len(caps), c,
+                                 caps)
+    denom, e, ga, invtot = _f32_pair_against_plain(a_n, bank, idx)
+    denom2, e2 = infonce.infonce_fwd(a_n, bank, idx, 1 / T)
+    ga2 = infonce.infonce_bwd(e2, bank, idx, invtot)
+    assert torch.equal(denom, denom2) and torch.equal(e, e2) \
+        and torch.equal(ga, ga2)
+
+
+@pytest.mark.cuda
+def test_infonce_f32_pair_duplicate_rows(no_tf32):
+    """Every query of a group draws the same row at each n: one staged copy
+    serves all of them, and a row drawn twice adds twice."""
+    a_n, bank, _ = _f32_inputs(no_tf32, q=40, n=61)
+    idx = (torch.arange(61, device=no_tf32) * 7 % 23).to(torch.int32)
+    _f32_pair_against_plain(a_n, bank, idx.expand(K, 40, 61).contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [8, 16, 24, 64, 256, 496, 512])
+def test_infonce_f32_pair_at_each_width(no_tf32, c):
+    """'smc' draws at Q = 40, N = 61 over 2 classes: C 8, 16 and 24 give
+    2, 4 and 8 lanes a pair and several sample slices (C 24: threads past
+    G * C / 4 idle in the backward), 64 and up 16 lanes and one slice, 512
+    the widest."""
+    _f32_pair_against_plain(*_f32_inputs(no_tf32, "smc", 40, 61, k=2, c=c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("off", [-1, 1], ids=["short", "over"])
+@pytest.mark.parametrize("fwd", [1, 0], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("c,n", [(16, 1100), (24, 1100), (256, 61),
+                                 (496, 61)])
+def test_infonce_f32_pair_at_a_stage_edge(no_tf32, c, n, fwd, off):
+    """Every block stages one row fewer than a stage of the f32 route's
+    forward (or backward) holds, or one more (a second stage of a single
+    row), from arco_infonce_rows' f32 layout."""
+    from arco_torch.kernels import build
+    k, q = 2, 40
+    rows = build.load_library().arco_infonce_rows(k, q, n, c, fwd, 1)
+    a_n, bank, _ = _f32_inputs(no_tf32, "smc", q, n, k=k, c=c)
+    idx = torch.from_numpy(
+        _staged_heads_idx(k, q, n, c, rows + off, CAP)).to(no_tf32)
+    _f32_pair_against_plain(a_n, bank, idx)
+
+
+@pytest.mark.cuda
+def test_fused_infonce_f32_autograd_matches_plain(no_tf32):
+    """f32 anchors and bank: the loss and the gradients of the fused pair
+    against autograd through the plain sampled_infonce."""
+    a_n, bank, idx = _f32_inputs(no_tf32)
+    gen = torch.Generator(device=no_tf32).manual_seed(3)
+    p_n = torch.nn.functional.normalize(
+        torch.randn((K, C), generator=gen, device=no_tf32), dim=-1)
+
+    def run(fn):
+        a = a_n.clone().requires_grad_()
+        p = p_n.clone().requires_grad_()
+        loss = fn(a, p, bank, idx, T, bank_normalized=True)
+        (loss * torch.arange(1.0, K + 1, device=no_tf32)).sum().backward()
+        return loss.detach(), a.grad, p.grad
+
+    before = launch_counts()["infonce_fwd_f32"]
+    got = run(infonce.fused_sampled_infonce)
+    assert launch_counts()["infonce_fwd_f32"] == before + 1
+    want = run(contrastive.sampled_infonce)
+    torch.testing.assert_close(got[0], want[0], **F32_TOL)
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=1e-5,
+                                   atol=1e-5 * w.abs().max().item())
+
+
+def _f32_sims_against_plain(q, p):
+    before = launch_counts()
+    got = pool_sims.pool_similarities(q, p)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        **{k: 0 for k in after}, "pool_sims_f32": 1}
+    want = pool_sims.pool_similarities_plain(q, p)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * want.abs().max().item())
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool_dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16_pool", "f32_pool"])
+@pytest.mark.parametrize("f", [3 * 4096 + 8, 296])
+@pytest.mark.parametrize("k", [1, 36, 49])
+@pytest.mark.parametrize("b", [1, 4, 5, 9, 17])
+def test_pool_sims_f32_matches_plain(no_tf32, b, k, f, pool_dtype):
+    """f32 queries: one group of 4 (1, 4) or 8 (5) query rows, several
+    (9, 17); pool rows in one warp's share, a full 36 and a second 48-row
+    group (49); F not a multiple of the 256-feature step, and F = 296."""
+    gen = torch.Generator(device=no_tf32).manual_seed(100 * b + k)
+    q = torch.randn((b, f), generator=gen, device=no_tf32)
+    p = torch.randn((k, f), generator=gen, device=no_tf32).to(pool_dtype)
+    _f32_sims_against_plain(q, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool_dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16_pool", "f32_pool"])
+@pytest.mark.parametrize("f", [496 * 256 * 256, 16 * 112 * 112 * 80],
+                         ids=["2d", "3d"])
+def test_pool_sims_f32_at_the_main_paths_shapes(no_tf32, f, pool_dtype):
+    """The f32 step's revisiting loss: 2 x 2 f32 reps against 36 pool rows
+    of the 2D or 3D width, each query near one pool row (sims in [0,
+    ~0.7]); two launches agree bit for bit."""
+    gen = torch.Generator(device=no_tf32).manual_seed(6)
+    p = torch.nn.functional.normalize(
+        torch.randn((36, f), generator=gen, device=no_tf32),
+        dim=-1).to(pool_dtype)
+    q = torch.randn((4, f), generator=gen, device=no_tf32) / f ** 0.5 \
+        + 0.7 * torch.arange(1, 5, device=no_tf32)[:, None] / 4 \
+        * p[:4].float()
+    q = torch.nn.functional.normalize(q, dim=-1)
+    got = _f32_sims_against_plain(q, p)
+    assert torch.equal(got, pool_sims.pool_similarities(q, p))
+
+
+@pytest.mark.cuda
+def test_f32_routes_refuse_mixed_dtypes(cuda):
+    """f32 anchors need an f32 bank, bf16 queries a bf16 pool; f64 takes
+    no route."""
+    idx = torch.zeros(1, 2, 3, dtype=torch.int32, device=cuda)
+    a = torch.randn(1, 2, 16, device=cuda)
+    with pytest.raises(ValueError):
+        infonce.infonce_fwd(a.to(torch.bfloat16), a.new_zeros(1, 4, 16),
+                            idx, 2.0)
+    with pytest.raises(ValueError):
+        infonce.infonce_fwd(a.double(), a.new_zeros(1, 4, 16).double(),
+                            idx, 2.0)
+    q = torch.randn(2, 64, device=cuda)
+    with pytest.raises(ValueError):
+        pool_sims.pool_similarities(q.to(torch.bfloat16), q)
+    with pytest.raises(ValueError):
+        pool_sims.pool_similarities(q.double(), q.double())
 
 
 @pytest.mark.cuda

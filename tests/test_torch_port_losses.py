@@ -68,6 +68,33 @@ def test_equivariance_loss_and_gradient():
     np.testing.assert_allclose(p.grad.numpy(), np.asarray(jg), atol=1e-6)
 
 
+def test_revisiting_loss_bf16_pool_f32_reps(monkeypatch):
+    """The step at --compute_dtype float32 with the CLIs' bf16 pool: JAX
+    widens the pool to the reps' f32 (exact), the port hands the bf16 pool
+    to pool_similarities as it is (its kernel widens in registers; no f32
+    copy of the pool); the same loss at rtol 1e-5."""
+    rs = np.random.RandomState(16)
+    pool = rs.randn(6, 4, 4, 8).astype(np.float32)
+    pool /= np.linalg.norm(pool.reshape(6, -1), axis=1)[:, None, None, None]
+    pool_bf16 = torch.from_numpy(pool).to(torch.bfloat16)
+    rep_u = rs.randn(2, 4, 4, 8).astype(np.float32)
+    rep_t = rs.randn(2, 4, 4, 8).astype(np.float32)
+    want = float(jcons.revisiting_loss(
+        jnp.asarray(pool_bf16.float().numpy()).astype(jnp.bfloat16),
+        jnp.asarray(rep_u), jnp.asarray(rep_t), topk=3))
+    handed = []
+    sims_fn = consistency.pool_similarities
+
+    def spy(queries, pool_rows):
+        handed.append((queries.dtype, pool_rows.dtype))
+        return sims_fn(queries, pool_rows)
+    monkeypatch.setattr(consistency, "pool_similarities", spy)
+    got = float(consistency.revisiting_loss(
+        pool_bf16, torch.from_numpy(rep_u), torch.from_numpy(rep_t), topk=3))
+    assert handed == [(torch.float32, torch.bfloat16)]
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
 # ---------------------------------------------------------- contrastive
 
 def test_create_memobank():
