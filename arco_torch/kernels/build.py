@@ -38,6 +38,8 @@ _SIGNATURES = {
     "arco_infonce_group": (_I, []),
     "arco_infonce_splits": (_I, [_I] * 4),
     "arco_infonce_rows": (_I, [_I] * 6),
+    "arco_infonce_slots": (_I, [_I] * 6),
+    "arco_infonce_work": (_LL, [_I] * 5),
     "arco_pool_sims": (_I, [_P, _P, _P, _P, _I, _I, _LL, _I, _P]),
     "arco_pool_sims_f32": (_I, [_P, _P, _I, _P, _P, _I, _I, _LL, _I, _P]),
     "arco_pool_sims_blocks_per_sm": (_I, []),

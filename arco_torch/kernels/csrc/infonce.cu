@@ -80,26 +80,46 @@
 //
 // The f32 route (infonce_fwd_f32_kernel / infonce_bwd_f32_kernel: f32
 // anchors and bank, the stage-2 step at --compute_dtype float32) keeps the
-// tile, the plan and the 2-slot ring, with rows of C / 4 16-byte chunks,
-// and does each stage's work in f32 FMAs on the staged rows, one product
-// per (query, sample) pair, in the order of the channels: no rounding of
-// the operands (single-pass TF32 would leave ~5e-4 on s, ~1e-3 on e), and
-// 2 K Q N C flops, ~8 us at the 2D shapes at f32's rate, below the ~0.09
-// ms that the rows' bytes take, so the copies still set the pace.
-//   fwd: `lanes` lanes (16, fewer at C < 64) compute one pair's dot product
-//        against their part of the query's anchor, held in registers; two
-//        samples a pass share one butterfly sum. Groups beyond the 16
-//        queries take every other sample (C < 64).
+// tile and the plan, with rows of C / 4 16-byte chunks, and does each
+// stage's work in f32 FMAs on the staged rows, one product per (query,
+// sample) pair, in the order of the channels: no rounding of the operands
+// (single-pass TF32 would leave ~5e-4 on s, ~1e-3 on e), and 2 K Q N C
+// flops, ~8 us at the 2D shapes at f32's rate, below the ~0.09 ms that the
+// rows' bytes take, so the copies set the pace. An f32 row is twice a
+// bf16 one, so a stage holds half the rows and a block walks twice the
+// stages; the route has a pipeline of its own (walk_f32) in which no
+// stage waits on all copies or on a block barrier: a ring of D slots with
+// a full and an empty mbarrier each (D: see Layout). Rows of 1 KB and more
+// arrive by TMA bulk copies (cp.async.bulk, C * 4 bytes a row) that one
+// warp issues; shorter rows by 16-byte cp.async that signal the full
+// barrier as they land (at C = 16 a TMA copy of a 64-byte row costs more
+// than its bytes). Stages st + 1 ... st + D - 1 are in flight while stage
+// st is computed, and each warp waits only on its stage's full barrier.
+// A call is one grid: the last block of each (class, query group) to
+// finish, known by an integer ticket, sums the S partials in split order,
+// as the bf16 route's second grid does (bit-identical from run to run, no
+// float atomics); at C = 16 a second grid and the gap before it cost ~3
+// us of a ~15 us call (PERF.md).
+//   fwd: `lanes` lanes (16; at C < 128 half the row's chunks, at least 2)
+//        compute one pair's dot product against their part of the query's
+//        anchor, held in registers; two samples a pass share one butterfly
+//        sum. Groups beyond the 16 queries take every other sample (C <
+//        128).
 //   bwd: each thread owns fixed (query, 16-byte chunk) entries of the
 //        [G, C] output and accumulates e * invtot * row in registers;
 //        threads beyond G * C / 4 take every other sample, and the block
-//        sums their partials in a fixed order.
+//        sums their partials in a fixed order. The weights (e * invtot)
+//        load while the first stages' copies are in flight.
 // A pair reads its run head's row, so no pair reads a row past the
-// stage's last and the tail needs no zeros; a pair outside the tile weighs
-// 0 and reads the stage's first row (real data), so its loads need no
-// branch. Each row is read by runs of consecutive lanes over consecutive
-// chunks, which no bank conflict slows, so the ring's stride is C / 4
-// chunks with no pad. The registers allow 2 blocks an SM.
+// stage's last and the tail needs no zeros; a pair outside the stage or
+// the tile weighs 0 and reads the stage's first row (real data), so its
+// loads need no branch or predicate (predicated loads ran ~3% slower on
+// the H100 at C = 496). Each row is read
+// by runs of consecutive lanes over consecutive chunks, which no bank
+// conflict slows, so the ring's stride is C / 4 chunks with no pad. The
+// registers allow 2 blocks an SM. Each kernel is a template on the chunks
+// a thread holds (1, 2, 4 or 8), so at small C no thread loads and
+// multiplies the zeros of chunks past the row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -125,9 +145,11 @@ constexpr size_t kSmemSM = 233472;           // per SM, 1 KB a block reserved
 constexpr size_t kSmemReserved = 1024;
 constexpr int kMaxDevices = 64;
 constexpr int kBlocksF32 = 2;                // f32 route: blocks an SM
+constexpr int kMaxSlotsF32 = 8;              // f32 route: ring slots, at most
+constexpr int kMinStageF32 = 16;             // f32 route: rows a stage, if 3+
+constexpr int kMinRingF32 = 32;              // f32 route: ring rows, at least
+constexpr int kTmaRowF32 = 1024;             // f32 route: TMA rows, bytes
 constexpr int kLanesF32 = 16;                // f32 fwd: lanes a pair, at most
-constexpr int kMaxJF32 = kMaxC / 4 / kLanesF32;        // f32 fwd: chunks a lane
-constexpr int kMaxOwnF32 = kG * (kMaxC / 4) / kThreads;  // f32 bwd: chunks a thread
 
 // The most blocks an SM that the kernels' registers allow (<= 85 a thread
 // for 3): the forward (47) and the backward up to 2 n8-tile pairs a warp
@@ -155,6 +177,63 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Arrive on `bar` once the thread's cp.async copies so far have landed.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Arrive and expect `bytes` more of the phase's copies.
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = smem_u32(bar);
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+}
+
+// One TMA bulk copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from global to shared memory, counted on `bar` when it lands.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 // Four 8x8 bf16 matrices; lane l gives the address of row l % 8 of matrix
@@ -205,13 +284,24 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
 // fit, up to 512.
 //
 // The f32 route: rows of cr = C / 4 chunks, stride cr; no spart, anchors
-// or W (the FMAs read the ring and registers); the ring at least
-// kThreads * 16 bytes, where the bwd sums its sample slices at the end.
+// or W (the FMAs read the ring and registers). Its ring has `slots` (D)
+// slots of `rows` rows, and a full and an empty mbarrier a slot after the
+// plan's arrays. The registers allow 2 blocks an SM; the plan's arrays
+// take what the tile needs and the ring the rest, up to a D-th of the
+// tile's pairs a slot (so a small tile still spreads over the slots) and
+// kMaxRows. D is the most slots, up to 8, whose stages keep 16 rows, else
+// 2: each stage costs the walk a fixed time, so on the H100 fewer, larger
+// stages won at C = 496 (PERF.md). At C = 496 (2D) that is 2 slots of 22
+// rows (87 KB a block: 43 KB in flight while 43 KB are computed, so 87 KB
+// in flight an SM), at C = 16 (3D) 8 slots of 128 rows, more than a
+// tile's run heads, all in flight at once. The ring is at least kThreads
+// * 16 bytes for the bwd, which sums its sample slices there at the end.
 struct Layout {
   int c8, cr, ks, stride, tlog, rows, mt, kp, npw, kpb, pairs, chunk, P;
-  int blocks, wstride, lanes, slices;
-  bool f32;
-  size_t ring, spart, anchors, w, val, idx, head, heads, ostart, scan, bytes;
+  int blocks, wstride, lanes, slices, slots;
+  bool f32, tma;
+  size_t ring, spart, anchors, w, val, idx, head, heads, ostart, scan, bars;
+  size_t bytes;
 
   Layout(int N, int C, int S, bool fwd, bool f32_ = false) {
     f32 = f32_;
@@ -226,13 +316,24 @@ struct Layout {
     kpb = kWarps / npw;                 // bwd: warps across the k-steps
     pairs = (ks + npw - 1) / npw;       // bwd: n8-tile pairs a warp
     lanes = 2;                          // f32 fwd: lanes a pair
-    while (lanes < imin(cr, kLanesF32)) lanes *= 2;
+    while (lanes < imin(cr / 2, kLanesF32)) lanes *= 2;
     // f32: sample slices, fwd groups of `lanes` a query, bwd threads an
     // output chunk
     slices = fwd ? kThreads / lanes / kG : imax(1, kThreads / (kG * cr));
     chunk = (N + S - 1) / S;
     P = kG * chunk;
-    const int most = f32 ? kBlocksF32 : max_blocks(fwd, pairs);
+    slots = 2;
+    bars = 0;
+    tma = f32 && C * 4 >= kTmaRowF32;
+    if (f32) {
+      blocks = kBlocksF32;
+      if (!fit_f32(fwd, kSmemSM / blocks - kSmemReserved)) {
+        blocks = 1;
+        fit_f32(fwd, kSmemMax);
+      }
+      return;
+    }
+    const int most = max_blocks(fwd, pairs);
     for (int least = 32; least >= 16; least -= 16)
       for (blocks = most; blocks >= 2; --blocks)
         if (fit(fwd, kSmemSM / blocks - kSmemReserved, least)) return;
@@ -247,12 +348,34 @@ struct Layout {
     return place(fwd) <= budget;
   }
 
+  // f32: the most slots, up to kMaxSlotsF32, whose stages keep at least
+  // kMinStageF32 rows, else 2 (a stage costs the walk a fixed time, PERF.md),
+  // each of as many rows as fit `budget`.
+  bool fit_f32(bool fwd, size_t budget) {
+    for (slots = kMaxSlotsF32; slots > 2; --slots)
+      if (fit_rows_f32(fwd, budget) && rows >= kMinStageF32) return true;
+    return fit_rows_f32(fwd, budget);
+  }
+
+  // f32: as many rows a slot as fit `budget`, at most kMaxRows and a D-th
+  // of the tile's pairs, if the ring holds at least kMinRingF32 rows.
+  bool fit_rows_f32(bool fwd, size_t budget) {
+    const int least = (kMinRingF32 + slots - 1) / slots;
+    rows = imax(least, imin(kMaxRows, (P + slots - 1) / slots));
+    const size_t row = (size_t)slots * stride * 16;
+    if (place(fwd) > budget && rows > least)
+      rows = imax(least, rows - (int)((bytes - budget + row - 1) / row));
+    while (place(fwd) > budget && rows > least) --rows;
+    return bytes <= budget;
+  }
+
   size_t place(bool fwd) {
     mt = rows / 16;                     // fwd: m16 tiles of a stage
-    kp = mt >= kWarps ? 1 : kWarps / mt;   // fwd: warps across k-steps
+    // fwd: warps across the k-steps (mt may be 0 on the f32 route)
+    kp = mt >= kWarps ? 1 : kWarps / imax(1, mt);
     size_t off = 0;
     ring = off;
-    size_t ring_bytes = (size_t)2 * rows * stride * 16;
+    size_t ring_bytes = (size_t)slots * rows * stride * 16;
     const size_t red_bytes = f32 ? (size_t)kThreads * 16
                                  : kRedFloats * sizeof(float);
     if (!fwd && ring_bytes < red_bytes) ring_bytes = red_bytes;
@@ -280,6 +403,10 @@ struct Layout {
     off += (size_t)((P + rows - 1) / rows + 1) * 4;
     scan = off;                         // int32 [kWarps]
     off += kWarps * 4;
+    if (f32) {                          // uint64 full[slots], empty[slots]
+      bars = (off + 7) / 8 * 8;
+      off = bars + (size_t)slots * 16;
+    }
     return bytes = off;
   }
 };
@@ -303,6 +430,8 @@ struct Smem {
   int16_t* heads;
   int32_t* ostart;  // stage st covers the pairs [ostart[st], ostart[st+1])
   int32_t* scan;
+  uint64_t* full;   // f32: slot s's rows have landed
+  uint64_t* empty;  // f32: every warp is done with slot s
   __device__ Smem(unsigned char* base, const Layout& L) {
     ring = reinterpret_cast<uint4*>(base + L.ring);
     spart = reinterpret_cast<float*>(base + L.spart);
@@ -315,6 +444,8 @@ struct Smem {
     heads = reinterpret_cast<int16_t*>(base + L.heads);
     ostart = reinterpret_cast<int32_t*>(base + L.ostart);
     scan = reinterpret_cast<int32_t*>(base + L.scan);
+    full = reinterpret_cast<uint64_t*>(base + L.bars);
+    empty = full + L.slots;
   }
 };
 
@@ -436,6 +567,151 @@ __device__ __forceinline__ void walk(const uint4* kb, const Layout& L,
   }
   cp_async_wait_all();
   __syncthreads();
+}
+
+// The f32 route's ring: slot s holds stage st = s, s + D, s + 2 D, ...
+// full[s] completes when the stage's rows have landed: one arrival, the
+// issuing lane's, plus the bytes of the stage's TMA copies, or one arrival
+// a lane of the issuing warp as its cp.async copies land. empty[s] (one
+// arrival a warp) completes when every warp is done with them. Thread 0
+// sets them up before plan_tile, whose barriers publish them. TMA: whether
+// the rows come by TMA (Layout::tma; a template parameter: with both ways
+// of copying in one instance the kernels ran slower at C = 496, PERF.md).
+template <bool TMA>
+__device__ __forceinline__ void init_ring(const Layout& L, const Smem& sm) {
+  if (threadIdx.x != 0) return;
+  for (int s = 0; s < L.slots; ++s) {
+    mbar_init(sm.full + s, TMA ? 1 : 32);
+    mbar_init(sm.empty + s, kWarps);
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One warp copies the rows of stage st's run heads into its slot, row r
+// of the slot for head st * R + r: rows of 1 KB and more one TMA bulk copy
+// (C * 4 bytes) each, after lane 0 has told full[] how many bytes to
+// expect; shorter rows (C = 16: 64 B, where a TMA copy a row costs more
+// than its bytes) as 16-byte cp.async chunks, min(C / 4, 32) lanes a row,
+// after which each lane arrives on full[] as its copies land.
+template <bool TMA>
+__device__ __forceinline__ void issue_stage_f32(const uint4* kb,
+                                                const Layout& L,
+                                                const Tile& t, const Smem& sm,
+                                                int st) {
+  const int lane = threadIdx.x & 31, s = st % L.slots;
+  const int h0 = st * L.rows, nr = imin(L.rows, t.heads - h0);
+  uint4* slot = sm.ring + (size_t)s * L.rows * L.stride;
+  if constexpr (TMA) {
+    const unsigned row_bytes = L.cr * 16;
+    if (lane == 0) mbar_arrive_tx(sm.full + s, nr * row_bytes);
+    __syncwarp();
+    for (int r = lane; r < nr; r += 32)
+      bulk_copy(slot + r * L.stride,
+                kb + (long long)sm.idx[sm.heads[h0 + r]] * L.cr, row_bytes,
+                sm.full + s);
+  } else {
+    const int tpr = 1 << L.tlog;
+    for (int r = lane >> L.tlog; r < nr; r += 32 >> L.tlog) {
+      const uint4* row = kb + (long long)sm.idx[sm.heads[h0 + r]] * L.cr;
+      uint4* dst = slot + r * L.stride;
+      for (int j = lane & (tpr - 1); j < L.cr; j += tpr)
+        cp_async16(dst + j, row + j);
+    }
+    cp_async_arrive(sm.full + s);
+  }
+}
+
+// The f32 route's walk over the tile through the D-slot ring; compute(st,
+// slot) runs once stage st has landed. Warp w fills slot w (w < D), then
+// every thread runs before() (all of them: it may hold a block barrier)
+// while those copies are in flight. Warp 0 refills stage st - 1's slot
+// with stage st + D - 1 as soon as every warp is done with it (its empty
+// barrier), before it computes stage st. So stages st + 1 ... st + D - 1
+// are in flight while stage st is computed, and a warp waits only on its
+// stage's full barrier: no block barrier and no wait on all copies sits
+// on a stage. (An integer count in place of the empty barrier, the last
+// warp done with a stage refilling its slot, ran slower on the H100 at C =
+// 496: PERF.md.)
+template <bool TMA, typename Before, typename Compute>
+__device__ __forceinline__ void walk_f32(const uint4* kb, const Layout& L,
+                                         const Tile& t, const Smem& sm,
+                                         Before&& before,
+                                         Compute&& compute) {
+  const int D = L.slots, slot_len = L.rows * L.stride;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int st = warp; st < imin(D, t.stages); st += kWarps)
+    issue_stage_f32<TMA>(kb, L, t, sm, st);
+  before();
+  for (int st = 0; st < t.stages; ++st) {
+    const int s = st % D;
+    if (warp == 0 && st > 0 && st + D - 1 < t.stages) {
+      mbar_wait(sm.empty + (st - 1) % D, ((st - 1) / D) & 1);
+      issue_stage_f32<TMA>(kb, L, t, sm, st + D - 1);
+    }
+    mbar_wait(sm.full + s, (st / D) & 1);
+    compute(st, sm.ring + (size_t)s * slot_len);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(sm.empty + s);
+  }
+  __syncthreads();
+}
+
+// The f32 route's split sum, folded into the kernel: after each block of a
+// (class, query group) has written its partial, the last of the S to
+// finish (an integer ticket after __threadfence; no float atomics) sums
+// the S partials in split order, as sum_splits_kernel does, into out and
+// leaves its ticket at 0 for the next launch. The group's partial s of
+// entry i lies at part[(k * S + s) * inner + off + i], its sum at
+// out[k * inner + off + i], i < len.
+__device__ __forceinline__ void fold_splits(const float* part, float* out,
+                                            unsigned* tickets, const Tile& t,
+                                            const Smem& sm, long long inner,
+                                            long long off, int len) {
+  const int S = gridDim.y;
+  // the barrier orders the block's writes before thread 0's fence, which
+  // releases them with the ticket (and, in the last block, acquires the
+  // other blocks' before the barrier that lets its threads read them)
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned* ticket = tickets + (long long)t.k * gridDim.x + blockIdx.x;
+    __threadfence();
+    const bool last = atomicAdd(ticket, 1u) == (unsigned)S - 1;
+    if (last) {
+      *ticket = 0u;
+      __threadfence();
+    }
+    sm.scan[0] = last;
+  }
+  __syncthreads();
+  if (!sm.scan[0]) return;
+  const float* p = part + (long long)t.k * S * inner + off;
+  float* o = out + (long long)t.k * inner + off;
+  if (((inner | off | len) & 3) == 0) {
+    for (int i = 4 * threadIdx.x; i < len; i += 4 * kThreads) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int j = 0; j < S; ++j) {
+        const float4 x =
+            __ldcg(reinterpret_cast<const float4*>(p + j * inner + i));
+        v.x += x.x;
+        v.y += x.y;
+        v.z += x.z;
+        v.w += x.w;
+      }
+      *reinterpret_cast<float4*>(o + i) = v;
+    }
+  } else {
+    for (int i = threadIdx.x; i < len; i += kThreads) {
+      float v = 0.f;
+      for (int j = 0; j < S; ++j) v += __ldcg(p + j * inner + i);
+      o[i] = v;
+    }
+  }
+}
+
+// The f32 route's workspace: the tickets, one a (class, query group),
+// rounded up to 16 bytes, then the partials.
+__host__ __device__ inline long long ticket_words(int groups, int K) {
+  return ((long long)groups * K + 3) / 4 * 4;
 }
 
 // The forward's tail: e out, coalesced over n; the chunk's partial
@@ -683,14 +959,18 @@ infonce_bwd_kernel(const Layout L,
 }
 
 // The f32 route's forward: the pairs' dot products in f32 FMAs on the
-// staged rows (see the top of the file).
+// staged rows (see the top of the file). work: the tickets, then the
+// partial denominators [K,S,Q]. J: the chunks a lane reads of a row
+// (ceil(C / 4 / lanes), a power of two up to 8); TMA: Layout::tma.
+template <int J, bool TMA>
 __global__ void __launch_bounds__(kThreads, kBlocksF32)
 infonce_fwd_f32_kernel(const Layout L,
                        const float* __restrict__ anchors,      // [K,Q,C]
                        const float* __restrict__ bank,         // [K,cap,C]
                        const int32_t* __restrict__ neg_idx,    // [K,Q,N]
                        float* __restrict__ e,                  // [K,Q,N]
-                       float* __restrict__ dpart,              // [K,S,Q]
+                       unsigned* __restrict__ work,
+                       float* __restrict__ denom,              // [K,Q]
                        int Q, int N, int C, long long cap,
                        float inv_temp) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -707,16 +987,17 @@ infonce_fwd_f32_kernel(const Layout L,
   const int grp = threadIdx.x / LP, lane = threadIdx.x % LP;
   const int g = grp % G, slice = grp / G;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  float4 a[kMaxJF32];
+  float4 a[J];
   {
     const float4* arow = reinterpret_cast<const float4*>(anchors) +
                          (qbase + g) * L.cr;
 #pragma unroll
-    for (int i = 0; i < kMaxJF32; ++i) {
+    for (int i = 0; i < J; ++i) {
       const int j = lane + LP * i;
       a[i] = g < t.gq && j < L.cr ? __ldg(arow + j) : zero;
     }
   }
+  init_ring<TMA>(L, sm);
   plan_tile(neg_idx, Q, N, L, sm, t);
 
   const uint4* kb =
@@ -725,15 +1006,15 @@ infonce_fwd_f32_kernel(const Layout L,
   // loads are not behind a branch, so the two samples' loads overlap.
   auto dot = [&](const uint4* slot, int r) {
     const float4* row = reinterpret_cast<const float4*>(slot + r * L.stride);
-    float4 x[kMaxJF32];
+    float4 x[J];
 #pragma unroll
-    for (int i = 0; i < kMaxJF32; ++i) {
+    for (int i = 0; i < J; ++i) {
       const int j = lane + LP * i;
       x[i] = j < L.cr ? row[j] : zero;
     }
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < kMaxJF32; ++i) {
+    for (int i = 0; i < J; ++i) {
       acc[0] = fmaf(x[i].x, a[i].x, acc[0]);
       acc[1] = fmaf(x[i].y, a[i].y, acc[1]);
       acc[2] = fmaf(x[i].z, a[i].z, acc[2]);
@@ -741,7 +1022,7 @@ infonce_fwd_f32_kernel(const Layout L,
     }
     return (acc[0] + acc[1]) + (acc[2] + acc[3]);
   };
-  walk(kb, L, t, sm, [&](int st, const uint4* slot) {
+  walk_f32<TMA>(kb, L, t, sm, [] {}, [&](int st, const uint4* slot) {
     const int oa = sm.ostart[st], ob = sm.ostart[st + 1];
     const int na = oa / G, nb = (ob - 1) / G, h0 = st * L.rows;
     auto valid = [&](int nl, int o) {
@@ -766,35 +1047,42 @@ infonce_fwd_f32_kernel(const Layout L,
       if (lane == LP / 2 && vB) sm.val[oB] = expf(s * inv_temp - inv_temp);
     }
   });
+  float* dpart =
+      reinterpret_cast<float*>(work + ticket_words(gridDim.x, gridDim.z));
   store_fwd(L, t, sm, e, dpart, Q, N);
+  fold_splits(dpart, denom, work, t, sm, Q, t.q0, t.gq);
 }
 
 // The f32 route's backward: each thread accumulates e * invtot * row for
-// its (query, chunk) entries of the [G, C] output over its samples.
+// its (query, chunk) entries of the [G, C] output over its samples. work:
+// the tickets, then the partials [K,S,Q,C]. M: the entries a thread owns
+// (ceil(G * C / 4 / kThreads), a power of two up to 8); TMA: Layout::tma.
+template <int M, bool TMA>
 __global__ void __launch_bounds__(kThreads, kBlocksF32)
 infonce_bwd_f32_kernel(const Layout L,
                        const float* __restrict__ e,            // [K,Q,N]
                        const float* __restrict__ bank,         // [K,cap,C]
                        const int32_t* __restrict__ neg_idx,    // [K,Q,N]
                        const float* __restrict__ invtot,       // [K,Q]
-                       float* __restrict__ gpart,              // [K,S,Q,C]
+                       unsigned* __restrict__ work,
+                       float* __restrict__ ga,                 // [K,Q,C]
                        int Q, int N, int C, long long cap) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int G = kG;
   const Smem sm(smem, L);
   Tile t = tile_of(Q, N, L);
-  load_weights(L, t, sm, e, invtot, Q, N);
+  init_ring<TMA>(L, sm);
   plan_tile(neg_idx, Q, N, L, sm, t);
 
   // With one slice thread i owns the output chunks p = i + m * kThreads of
-  // the [G, cr] tile (G * cr <= kMaxOwnF32 * kThreads); with more, each
+  // the [G, cr] tile (G * cr <= M * kThreads); with more, each
   // thread one chunk p = i % own of slice i / own. own_g = G: no entry.
   const int own = G * L.cr, nsl = L.slices;
   const int slice = nsl > 1 ? threadIdx.x / own : 0;
-  int own_g[kMaxOwnF32], own_j[kMaxOwnF32];
-  float4 acc[kMaxOwnF32];
+  int own_g[M], own_j[M];
+  float4 acc[M];
 #pragma unroll
-  for (int m = 0; m < kMaxOwnF32; ++m) {
+  for (int m = 0; m < M; ++m) {
     const int p = nsl > 1 ? threadIdx.x % own : threadIdx.x + m * kThreads;
     const bool ok = nsl > 1 ? m == 0 && slice < nsl : p < own;
     own_g[m] = ok ? p / L.cr : G;
@@ -803,13 +1091,18 @@ infonce_bwd_f32_kernel(const Layout L,
   }
   const uint4* kb =
       reinterpret_cast<const uint4*>(bank + (long long)t.k * cap * C);
-  walk(kb, L, t, sm, [&](int st, const uint4* slot) {
+  // the weights load while the first stages' copies are in flight
+  auto weights = [&] {
+    load_weights(L, t, sm, e, invtot, Q, N);
+    __syncthreads();
+  };
+  walk_f32<TMA>(kb, L, t, sm, weights, [&](int st, const uint4* slot) {
     const int oa = sm.ostart[st], ob = sm.ostart[st + 1];
     const int na = oa / G, nb = imin((ob - 1) / G, t.nn - 1);
     // the stage's samples nl in [lo[m], hi[m]] for query own_g[m]
-    int lo[kMaxOwnF32], hi[kMaxOwnF32];
+    int lo[M], hi[M];
 #pragma unroll
-    for (int m = 0; m < kMaxOwnF32; ++m) {
+    for (int m = 0; m < M; ++m) {
       const int g = own_g[m];
       lo[m] = na + (na * G + g < oa);
       hi[m] = g < t.gq ? nb - (nb * G + g >= ob) : na - 1;
@@ -817,22 +1110,22 @@ infonce_bwd_f32_kernel(const Layout L,
     // A pair outside the stage weighs 0 and reads the stage's first row.
     const int h0 = st * L.rows;
     for (int nl = na + slice; nl <= nb; nl += nsl) {
-      int r[kMaxOwnF32];
-      float w[kMaxOwnF32];
+      int r[M];
+      float w[M];
 #pragma unroll
-      for (int m = 0; m < kMaxOwnF32; ++m) {
+      for (int m = 0; m < M; ++m) {
         const bool v = nl >= lo[m] && nl <= hi[m];
         const int o = nl * G + own_g[m];
         r[m] = v ? sm.head[o] - h0 : 0;
         w[m] = v ? sm.val[o] : 0.f;
       }
-      float4 x[kMaxOwnF32];
+      float4 x[M];
 #pragma unroll
-      for (int m = 0; m < kMaxOwnF32; ++m)
+      for (int m = 0; m < M; ++m)
         x[m] = reinterpret_cast<const float4*>(slot + r[m] * L.stride)
             [own_j[m]];
 #pragma unroll
-      for (int m = 0; m < kMaxOwnF32; ++m) {
+      for (int m = 0; m < M; ++m) {
         acc[m].x = fmaf(w[m], x[m].x, acc[m].x);
         acc[m].y = fmaf(w[m], x[m].y, acc[m].y);
         acc[m].z = fmaf(w[m], x[m].z, acc[m].z);
@@ -857,12 +1150,18 @@ infonce_bwd_f32_kernel(const Layout L,
         acc[0].w += v.w;
       }
   }
-  if (slice != 0) return;
-  float4* out = reinterpret_cast<float4*>(
-      gpart + (((long long)t.k * gridDim.y + t.s) * Q + t.q0) * C);
+  float* gpart =
+      reinterpret_cast<float*>(work + ticket_words(gridDim.x, gridDim.z));
+  if (slice == 0) {
+    float4* out = reinterpret_cast<float4*>(
+        gpart + (((long long)t.k * gridDim.y + t.s) * Q + t.q0) * C);
 #pragma unroll
-  for (int m = 0; m < kMaxOwnF32; ++m)
-    if (own_g[m] < t.gq) out[(long long)own_g[m] * L.cr + own_j[m]] = acc[m];
+    for (int m = 0; m < M; ++m)
+      if (own_g[m] < t.gq)
+        out[(long long)own_g[m] * L.cr + own_j[m]] = acc[m];
+  }
+  fold_splits(gpart, ga, work, t, sm, (long long)Q * C, (long long)t.q0 * C,
+              t.gq * C);
 }
 
 // out[k, r] = sum_s part[k, s, r] for r < inner, in the order of s.
@@ -899,7 +1198,24 @@ cudaError_t allow_smem(const void* kernel, bool* done) {
 }
 
 bool fwd_smem_set[kMaxDevices], bwd_smem_set[3][kMaxDevices];
-bool fwd_f32_smem_set[kMaxDevices], bwd_f32_smem_set[kMaxDevices];
+bool fwd_f32_smem_set[2][4][kMaxDevices], bwd_f32_smem_set[2][4][kMaxDevices];
+
+// i with 2^i >= x, 2^(i-1) < x: the f32 kernels' instance for x <= 8.
+int log2_ceil(int x) {
+  int i = 0;
+  while ((1 << i) < x) ++i;
+  return i;
+}
+
+// Launch an f32 kernel instance with the layout's shared memory.
+template <typename Kernel, typename... Args>
+cudaError_t launch_f32(Kernel kernel, bool* smem_set, const Layout& L,
+                       dim3 grid, cudaStream_t stream, Args... args) {
+  const cudaError_t err = allow_smem((const void*)kernel, smem_set);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, L.bytes, stream>>>(L, args...);
+  return cudaGetLastError();
+}
 
 // Launch the backward instance for L.pairs n8-tile pairs a warp.
 template <int NP>
@@ -941,6 +1257,24 @@ int arco_infonce_splits(int K, int Q, int N, int C) {
 int arco_infonce_rows(int K, int Q, int N, int C, int fwd, int f32) {
   return Layout(N, C, arco_infonce_splits(K, Q, N, C), fwd != 0, f32 != 0)
       .rows;
+}
+
+// Slots of the ring of the forward (fwd != 0) or the backward kernel of
+// the bf16 (f32 == 0) or the f32 route at this shape.
+int arco_infonce_slots(int K, int Q, int N, int C, int fwd, int f32) {
+  return Layout(N, C, arco_infonce_splits(K, Q, N, C), fwd != 0, f32 != 0)
+      .slots;
+}
+
+// Bytes of the f32 route's workspace for the forward (fwd != 0) or the
+// backward: a ticket (uint32) a (class, query group), rounded up to 16
+// bytes, then the partials, K * splits * Q floats (fwd) or K * splits * Q
+// * C (bwd). The tickets must be zero before the first launch; every
+// launch leaves them at zero.
+long long arco_infonce_work(int K, int Q, int N, int C, int fwd) {
+  const long long S = arco_infonce_splits(K, Q, N, C);
+  return 4 * ticket_words((Q + kG - 1) / kG, K) +
+         4 * (long long)K * S * Q * (fwd ? 1 : C);
 }
 
 // Dynamic shared memory of a block of either kernel of the bf16 (f32 ==
@@ -1000,44 +1334,48 @@ int arco_infonce_bwd(const void* e, const void* bank, const void* neg_idx,
                     (long long)K * Q * C, (cudaStream_t)stream);
 }
 
-// The f32 route: f32 anchors and bank, the same arguments and outputs.
+// The f32 route: f32 anchors and bank, the same arguments and outputs,
+// but in place of dpart / gpart the workspace of arco_infonce_work bytes,
+// whose tickets let the kernel sum its partials itself: one grid a call.
 int arco_infonce_fwd_f32(const void* anchors, const void* bank,
-                         const void* neg_idx, void* e, void* dpart,
+                         const void* neg_idx, void* e, void* work,
                          void* denom, int K, int Q, int N, int C,
                          long long cap, float inv_temp, void* stream) {
   if (!arco_infonce_smem(N, C, 1)) return (int)cudaErrorInvalidValue;
   const int S = arco_infonce_splits(K, Q, N, C);
   const Layout L(N, C, S, true, true);
-  cudaError_t err =
-      allow_smem((const void*)infonce_fwd_f32_kernel, fwd_f32_smem_set);
-  if (err != cudaSuccess) return (int)err;
   const dim3 grid((Q + kG - 1) / kG, S, K);
-  infonce_fwd_f32_kernel<<<grid, kThreads, L.bytes, (cudaStream_t)stream>>>(
-      L, (const float*)anchors, (const float*)bank, (const int32_t*)neg_idx,
-      (float*)e, (float*)dpart, Q, N, C, cap, inv_temp);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return sum_splits((const float*)dpart, (float*)denom, S, Q,
-                    (long long)K * Q, (cudaStream_t)stream);
+  decltype(&infonce_fwd_f32_kernel<1, false>) const kernels[2][4] = {
+      {infonce_fwd_f32_kernel<1, false>, infonce_fwd_f32_kernel<2, false>,
+       infonce_fwd_f32_kernel<4, false>, infonce_fwd_f32_kernel<8, false>},
+      {infonce_fwd_f32_kernel<1, true>, infonce_fwd_f32_kernel<2, true>,
+       infonce_fwd_f32_kernel<4, true>, infonce_fwd_f32_kernel<8, true>}};
+  const int j = log2_ceil((L.cr + L.lanes - 1) / L.lanes);
+  return (int)launch_f32(kernels[L.tma][j], fwd_f32_smem_set[L.tma][j], L,
+                         grid, (cudaStream_t)stream, (const float*)anchors,
+                         (const float*)bank, (const int32_t*)neg_idx,
+                         (float*)e, (unsigned*)work, (float*)denom, Q, N, C,
+                         cap, inv_temp);
 }
 
 int arco_infonce_bwd_f32(const void* e, const void* bank, const void* neg_idx,
-                         const void* invtot, void* gpart, void* ga, int K,
+                         const void* invtot, void* work, void* ga, int K,
                          int Q, int N, int C, long long cap, void* stream) {
   if (!arco_infonce_smem(N, C, 1)) return (int)cudaErrorInvalidValue;
   const int S = arco_infonce_splits(K, Q, N, C);
   const Layout L(N, C, S, false, true);
-  cudaError_t err =
-      allow_smem((const void*)infonce_bwd_f32_kernel, bwd_f32_smem_set);
-  if (err != cudaSuccess) return (int)err;
   const dim3 grid((Q + kG - 1) / kG, S, K);
-  infonce_bwd_f32_kernel<<<grid, kThreads, L.bytes, (cudaStream_t)stream>>>(
-      L, (const float*)e, (const float*)bank, (const int32_t*)neg_idx,
-      (const float*)invtot, (float*)gpart, Q, N, C, cap);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return sum_splits((const float*)gpart, (float*)ga, S, (long long)Q * C,
-                    (long long)K * Q * C, (cudaStream_t)stream);
+  decltype(&infonce_bwd_f32_kernel<1, false>) const kernels[2][4] = {
+      {infonce_bwd_f32_kernel<1, false>, infonce_bwd_f32_kernel<2, false>,
+       infonce_bwd_f32_kernel<4, false>, infonce_bwd_f32_kernel<8, false>},
+      {infonce_bwd_f32_kernel<1, true>, infonce_bwd_f32_kernel<2, true>,
+       infonce_bwd_f32_kernel<4, true>, infonce_bwd_f32_kernel<8, true>}};
+  const int m = log2_ceil((kG * L.cr + kThreads - 1) / kThreads);
+  return (int)launch_f32(kernels[L.tma][m], bwd_f32_smem_set[L.tma][m], L,
+                         grid, (cudaStream_t)stream, (const float*)e,
+                         (const float*)bank, (const int32_t*)neg_idx,
+                         (const float*)invtot, (unsigned*)work, (float*)ga,
+                         Q, N, C, cap);
 }
 
 }  // extern "C"

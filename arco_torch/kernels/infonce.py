@@ -33,6 +33,13 @@ from arco_torch.ops.normalize import l2_normalize
 LAUNCHES = {"infonce_fwd": 0, "infonce_bwd": 0, "infonce_fwd_f32": 0,
             "infonce_bwd_f32": 0}
 
+# (device index, stream, ticket count) -> the f32 route's workspace: a
+# ticket a (class, query group), which the kernels leave at zero, then the
+# partials. Reused by every f32 launch of that many tickets on that
+# stream, which runs after the previous one ended; the ticket count in the
+# key keeps the partials of one shape off the tickets of another.
+_WORKSPACES: dict = {}
+
 
 def _gather_rows(bank, neg_idx):
     k = torch.arange(bank.shape[0], device=bank.device)[:, None, None]
@@ -84,6 +91,19 @@ def _splits(k, q, n, c, f32: bool):
     return lib.arco_infonce_splits(k, q, n, c)
 
 
+def _workspace(lib, device, k, q, n, c, fwd: bool):
+    """The f32 route's workspace for this shape and the current stream,
+    allocated zeroed and grown (zeroed) when a launch needs more."""
+    need = lib.arco_infonce_work(k, q, n, c, int(fwd))
+    key = (device.index, build.stream_ptr(device),
+           k * -(-q // lib.arco_infonce_group()))
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws.numel() < need:
+        ws = torch.zeros(need, dtype=torch.uint8, device=device)
+        _WORKSPACES[key] = ws
+    return ws
+
+
 def _route(bank):
     """(the bank's dtype, whether it takes the f32 route) on CUDA."""
     if bank.dtype not in (torch.bfloat16, torch.float32):
@@ -95,9 +115,10 @@ def _route(bank):
 def infonce_fwd(a_n, bank, neg_idx, inv_temp: float):
     """(denom [K, Q], e [K, Q, N]) f32, e = exp(s / T - 1 / T) of each
     sampled similarity. neg_idx entries must lie in [0, cap). The anchors
-    have the bank's dtype, bf16 or f32. One call is one launch in LAUNCHES,
-    though it runs two grids (the kernel and the fixed-order sum of its
-    partial denominators)."""
+    have the bank's dtype, bf16 or f32. One call is one launch in LAUNCHES:
+    on the bf16 route two grids (the kernel and the fixed-order sum of its
+    partial denominators), on the f32 route one, whose last block of each
+    query group sums the partials in the same order."""
     if a_n.device.type == "cpu":
         return infonce_denom_plain(a_n, bank, neg_idx, inv_temp)
     dtype, f32 = _route(bank)
@@ -110,8 +131,9 @@ def infonce_fwd(a_n, bank, neg_idx, inv_temp: float):
     out = dict(dtype=torch.float32, device=a_n.device)
     denom = torch.empty((k, q), **out)
     e = torch.empty((k, q, n), **out)
-    dpart = torch.empty((k, s, q), **out)
     lib = build.load_library()
+    dpart = _workspace(lib, a_n.device, k, q, n, c, True) if f32 \
+        else torch.empty((k, s, q), **out)
     name = "infonce_fwd_f32" if f32 else "infonce_fwd"
     build.check(getattr(lib, "arco_" + name)(
         a_n.data_ptr(), bank.data_ptr(), neg_idx.data_ptr(), e.data_ptr(),
@@ -123,8 +145,9 @@ def infonce_fwd(a_n, bank, neg_idx, inv_temp: float):
 
 def infonce_bwd(e, bank, neg_idx, invtot):
     """ga [K, Q, C] f32 = invtot * sum_n e * bank[idx], e from infonce_fwd.
-    One call is one launch in LAUNCHES, though it runs two grids (the
-    kernel and the fixed-order sum of its per-chunk [K, Q, C] partials)."""
+    One call is one launch in LAUNCHES: on the bf16 route two grids (the
+    kernel and the fixed-order sum of its per-chunk [K, Q, C] partials),
+    on the f32 route one, which sums them itself."""
     if e.device.type == "cpu":
         return infonce_grad_plain(e, bank, neg_idx, invtot)
     dtype, f32 = _route(bank)
@@ -140,8 +163,9 @@ def infonce_bwd(e, bank, neg_idx, invtot):
     s = _splits(k, q, n, c, f32)
     out = dict(dtype=torch.float32, device=e.device)
     ga = torch.empty((k, q, c), **out)
-    gpart = torch.empty((k, s, q, c), **out)
     lib = build.load_library()
+    gpart = _workspace(lib, e.device, k, q, n, c, False) if f32 \
+        else torch.empty((k, s, q, c), **out)
     name = "infonce_bwd_f32" if f32 else "infonce_bwd"
     build.check(getattr(lib, "arco_" + name)(
         e.data_ptr(), bank.data_ptr(), neg_idx.data_ptr(), invtot.data_ptr(),

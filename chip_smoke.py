@@ -282,6 +282,28 @@ def _device_ms(fn, reps):
     return statistics.median(times)
 
 
+def _grid_ms(fn, reps=20):
+    """{CUDA kernel name: device ms per call} over ``reps`` calls under
+    torch.profiler, or None where it records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    except RuntimeError:       # no CUPTI: the timings stand without it
+        return None
+    out = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", 0) or 0
+        if t > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            out[ev.key[:60]] = t / 1e3 / reps
+    return out or None
+
+
 def _bound_ms(n_bytes, n_ops, peak_ops=PEAK_BF16_OPS_PER_S):
     """The larger of the bytes over the memory rate and the operations over
     ``peak_ops`` (bf16 tensor cores by default, PEAK_F32_OPS_PER_S for the
@@ -416,7 +438,8 @@ def _infonce_at(a_n, p_n, bank, neg_idx):
     gradients, which come back in the anchors' bf16 (ulp 2^-8), rtol 1e-2.
     f32 rows (the f32 route, "infonce_fwd_f32" / "infonce_bwd_f32"): exact
     f32 products against the plain versions' with TF32 off, rtol 1e-5
-    throughout."""
+    throughout; each f32 record also holds "grids", the device ms a call of
+    each CUDA kernel it runs (torch.profiler)."""
     import torch
     from arco_torch.kernels import infonce
     from arco_torch.losses import contrastive
@@ -481,6 +504,10 @@ def _infonce_at(a_n, p_n, bank, neg_idx):
         _log(f"  {name}: {out[name]['ms']:.4f} ms (device "
              f"{out[name]['device_ms']:.4f}), bound {bound:.4f} ms, "
              f"plain {out[name]['plain_ms']:.3f} ms, max err {max_err:.3g}")
+        if f32:
+            out[name]["grids"] = _grid_ms(fn)
+            _log(f"  {name} grids (device ms a call): "
+                 f"{out[name]['grids']}")
     return out
 
 

@@ -16,7 +16,13 @@ backward recomputes the similarities from the anchors
 returning denom) and the one whose backward reads the forward's e
 (``infonce_bwd(e, bank, neg_idx, invtot)``, ``infonce_fwd`` returning
 (denom, e)). Each result is held against a plain gather + einsum computed
-here (rtol 1e-3). Per root, shape, draw and kernel it prints one JSON line:
+here (rtol 1e-3). With ``--f32`` it times the f32 route instead (f32
+anchors and bank, TF32 off), at the 2D shape ('smc' and uniform draws) and
+the 3D one ('smc'), each result held at rtol 1e-5:
+
+    python3 scripts/torch_infonce_ab.py --f32 ROOT [ROOT ...]
+
+Per root, shape, draw and kernel it prints one JSON line:
 "ms" is one call between two CUDA events (the host's work before the
 launch included) and "device_ms" the device's time per call (calls queued
 behind a GPU sleep), both as ``chip_smoke.py`` takes them; "host_ms" is
@@ -24,8 +30,9 @@ the host's time per call, from entering the wrapper to its return, while
 the device works behind; "bound_ms" and "bound_by" are
 ``chip_smoke.py:_infonce_bounds``'s, "share" is bound_ms / device_ms;
 "grids" is the device time per call of each CUDA kernel the call runs,
-from ``torch.profiler`` (null where it records none). A table of all roots
-follows, under the card's name and power limit.
+from ``torch.profiler`` (``chip_smoke.py:_grid_ms``; null where it records
+none). A table of all roots follows, under the card's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -58,40 +65,24 @@ def host_ms(fn, reps=100):
     return statistics.median(times)
 
 
-def grid_ms(fn, reps=20):
-    """{CUDA kernel name: device ms per call} over ``reps`` calls under
-    torch.profiler, or None where it records no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-    except RuntimeError:       # no CUPTI: the timings stand without it
-        return None
-    out = {}
-    for ev in prof.key_averages():
-        t = getattr(ev, "device_time_total", 0) or 0
-        if t > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
-            out[ev.key[:60]] = t / 1e3 / reps
-    return out or None
-
-
-def shapes(cs):
+def shapes(cs, f32=False):
     """name -> (bank capacities, C, draws, generator seed)"""
+    if f32:
+        return {"2d": (cs.CAPS, cs.C, ("uniform", cs.MAIN_DRAW), 0),
+                "3d": (cs.CAPS_3D, cs.C_3D, (cs.MAIN_DRAW,), 4)}
     return {"2d": (cs.CAPS, cs.C, ("uniform", "smc", "asmc"), 0),
             "3d": (cs.CAPS_3D, cs.C_3D, (cs.MAIN_DRAW,), 4),
             "natural_c256": (cs.NAT_CAPS, cs.NAT_C, (cs.MAIN_DRAW,), 12),
             "natural_c496": (cs.NAT_CAPS, cs.C, (cs.MAIN_DRAW,), 12)}
 
 
-def run_one(root: Path, check: bool = True, only_main_draw: bool = False):
+def run_one(root: Path, check: bool = True, only_main_draw: bool = False,
+            f32: bool = False, grids: bool = True):
     """Time root's pair at every shape; ``check=False`` skips the results'
     check against the plain einsums (for variants that compute wrong
-    results on purpose), ``only_main_draw`` times the 'smc' draws alone."""
+    results on purpose), ``only_main_draw`` times the 'smc' draws alone,
+    ``f32`` the f32 route (f32 inputs, rtol 1e-5); ``grids=False`` skips
+    the per-grid times."""
     sys.path.insert(0, str(root))
     import torch
     from arco_torch.kernels import infonce
@@ -104,16 +95,19 @@ def run_one(root: Path, check: bool = True, only_main_draw: bool = False):
     if not Path(infonce.__file__).resolve().is_relative_to(root):
         raise RuntimeError(f"imported {infonce.__file__}, not from {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
+    dtype, tol, suffix = (torch.float32, 1e-5, "_f32") if f32 \
+        else (None, 1e-3, "")
     it = 1.0 / cs.TEMP
     reads_e = next(iter(inspect.signature(infonce.infonce_bwd)
                         .parameters)) == "e"
-    for shape, (caps, c, funcs, seed) in shapes(cs).items():
+    for shape, (caps, c, funcs, seed) in shapes(cs, f32).items():
         if only_main_draw:
             funcs = (cs.MAIN_DRAW,)
         gen = torch.Generator(device=device).manual_seed(seed)
         a_n, p_n, bank, draws = cs._infonce_inputs(gen, device, caps, c,
-                                                   funcs)
+                                                   funcs, dtype)
         pos = (a_n.float() * p_n.float()[:, None]).sum(-1) * it
         k = torch.arange(len(caps), device=device)[:, None, None]
         for func, idx in draws.items():
@@ -137,27 +131,31 @@ def run_one(root: Path, check: bool = True, only_main_draw: bool = False):
                 def bwd():
                     return infonce.infonce_bwd(a_n, bank, idx, invtot, it)
             if check:
-                torch.testing.assert_close(fwd(), denom, rtol=1e-3, atol=0)
-                torch.testing.assert_close(bwd(), ga, rtol=1e-3,
-                                           atol=1e-3 * ga.abs().max().item())
+                torch.testing.assert_close(fwd(), denom, rtol=tol, atol=0)
+                torch.testing.assert_close(bwd(), ga, rtol=tol,
+                                           atol=tol * ga.abs().max().item())
             _, bounds = cs._infonce_bounds(a_n, idx)
             for name, fn in (("infonce_fwd", fwd), ("infonce_bwd", bwd)):
                 device_ms = cs._device_ms(fn, 50)
                 bound, by = bounds[name]
                 print(json.dumps({
-                    "root": str(root), "shape": shape, "kernel": name,
+                    "root": str(root), "shape": shape,
+                    "kernel": name + suffix,
                     "draw": func, "ms": cs._time_ms(fn, 50),
                     "device_ms": device_ms, "host_ms": host_ms(fn),
                     "bound_ms": bound, "bound_by": by,
-                    "share": bound / device_ms, "grids": grid_ms(fn)}),
+                    "share": bound / device_ms,
+                    "grids": cs._grid_ms(fn) if grids else None}),
                     flush=True)
         del a_n, p_n, bank, draws, e, invtot, ga
         torch.cuda.empty_cache()
 
 
 def main(argv):
+    f32 = argv[:1] == ["--f32"]
+    argv = argv[f32:]
     if argv[:1] == ["--one"]:
-        run_one(Path(argv[1]).resolve())
+        run_one(Path(argv[1]).resolve(), f32=f32)
         return 0
     if not argv:
         print(__doc__, file=sys.stderr)
@@ -169,7 +167,8 @@ def main(argv):
     print(card, flush=True)
     rows = []
     for i, root in enumerate(argv):
-        out = subprocess.run([sys.executable, __file__, "--one", root],
+        out = subprocess.run([sys.executable, __file__,
+                              *["--f32"] * f32, "--one", root],
                              stdout=subprocess.PIPE, text=True, check=True,
                              timeout=900).stdout
         for line in out.splitlines():

@@ -364,7 +364,8 @@ def _f32_inputs(device, func="smc", q=Q, n=N, k=K, c=C, caps=None, seed=0):
 
 def _f32_pair_against_plain(a_n, bank, idx):
     """The f32 pair against its plain versions at F32_TOL, each call one
-    launch of its f32 route and none of the bf16 route."""
+    launch of its f32 route and none of the bf16 route; a second launch of
+    each gives the same bits."""
     invtot = torch.rand(a_n.shape[:2], device=a_n.device)
     before = launch_counts()
     denom, e = infonce.infonce_fwd(a_n, bank, idx, 1 / T)
@@ -379,6 +380,10 @@ def _f32_pair_against_plain(a_n, bank, idx):
     want = infonce.infonce_grad_plain(e_ref, bank, idx, invtot)
     torch.testing.assert_close(ga, want, rtol=1e-5,
                                atol=1e-5 * want.abs().max().item())
+    denom2, e2 = infonce.infonce_fwd(a_n, bank, idx, 1 / T)
+    ga2 = infonce.infonce_bwd(e2, bank, idx, invtot)
+    assert torch.equal(denom, denom2) and torch.equal(e, e2) \
+        and torch.equal(ga, ga2)
     return denom, e, ga, invtot
 
 
@@ -396,14 +401,10 @@ def test_infonce_f32_pair_matches_plain(no_tf32, func):
 def test_infonce_f32_pair_at_the_main_paths_shapes(no_tf32, c, caps):
     """The f32 step's pair: 256 anchors x 512 'smc' negatives over full
     banks, 4 classes of 496 channels (2D) or 2 of 16 (3D); two launches
-    agree bit for bit."""
+    agree bit for bit (_f32_pair_against_plain)."""
     a_n, bank, idx = _f32_inputs(no_tf32, "smc", 256, 512, len(caps), c,
                                  caps)
-    denom, e, ga, invtot = _f32_pair_against_plain(a_n, bank, idx)
-    denom2, e2 = infonce.infonce_fwd(a_n, bank, idx, 1 / T)
-    ga2 = infonce.infonce_bwd(e2, bank, idx, invtot)
-    assert torch.equal(denom, denom2) and torch.equal(e, e2) \
-        and torch.equal(ga, ga2)
+    _f32_pair_against_plain(a_n, bank, idx)
 
 
 @pytest.mark.cuda
@@ -441,6 +442,79 @@ def test_infonce_f32_pair_at_a_stage_edge(no_tf32, c, n, fwd, off):
     idx = torch.from_numpy(
         _staged_heads_idx(k, q, n, c, rows + off, CAP)).to(no_tf32)
     _f32_pair_against_plain(a_n, bank, idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", ["1", "D-1", "D", "D+1"])
+@pytest.mark.parametrize("fwd", [1, 0], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("c,n", [(496, 52), (64, 700)])
+def test_infonce_f32_pair_fills_the_ring(no_tf32, c, n, fwd, fill):
+    """Every block's run heads fill 1, D - 1, D or D + 1 stages of the f32
+    route's ring (arco_infonce_slots slots of arco_infonce_rows rows): one
+    slot, the ring short of full, the ring full at once, and one refill of
+    a slot the warps are done with; at C 496 (TMA copies, 3 slots of ~20
+    rows) and C 64 (cp.async copies, 8 slots of ~50 rows)."""
+    from arco_torch.kernels import build
+    lib = build.load_library()
+    k, q = 2, 32
+    d = lib.arco_infonce_slots(k, q, n, c, fwd, 1)
+    rows = lib.arco_infonce_rows(k, q, n, c, fwd, 1)
+    heads = {"1": rows, "D-1": (d - 1) * rows, "D": d * rows,
+             "D+1": d * rows + 1}[fill]
+    s = lib.arco_infonce_splits(k, q, n, c)
+    chunk = -(-n // s)
+    # every block (16 queries, chunk samples or the last chunk's fewer) can
+    # stage exactly `heads` rows
+    assert chunk <= heads <= 16 * (n - (s - 1) * chunk)
+    a_n, bank, _ = _f32_inputs(no_tf32, "smc", q, n, k=k, c=c)
+    idx = torch.from_numpy(
+        _staged_heads_idx(k, q, n, c, heads, CAP)).to(no_tf32)
+    _f32_pair_against_plain(a_n, bank, idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [16, 496])
+@pytest.mark.parametrize("k,q,n,splits", [(4, 256, 512, 4), (2, 256, 512, 8),
+                                          (2, 64, 512, 16)])
+def test_infonce_f32_pair_sums_each_split_count(no_tf32, k, q, n, splits,
+                                                c):
+    """The last block of each (class, query group) sums the S partials
+    into denom and ga: S = 4 (the 2D shape), 8 (the 3D one) and 16."""
+    from arco_torch.kernels import build
+    assert build.load_library().arco_infonce_splits(k, q, n, c) == splits
+    _f32_pair_against_plain(*_f32_inputs(no_tf32, "smc", q, n, k=k, c=c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [16, 496])
+def test_infonce_f32_pair_at_a_ragged_query_count(no_tf32, c):
+    """Q = 23: the second query group holds 7 queries, whose partials
+    (and the denominators' odd offsets) the last block sums."""
+    _f32_pair_against_plain(*_f32_inputs(no_tf32, "smc", 23, 100, k=3,
+                                         c=c))
+
+
+@pytest.mark.cuda
+def test_infonce_f32_pair_on_two_streams(no_tf32):
+    """Two streams run the f32 pair side by side at one shape, each with
+    its own workspace of tickets: every result equals, bit for bit, the
+    same call's on the default stream."""
+    inputs = [_f32_inputs(no_tf32, "smc", 64, 512, k=2, c=16, seed=s)
+              for s in (0, 1)]
+    want = [_f32_pair_against_plain(*x) for x in inputs]
+    streams = [torch.cuda.Stream() for _ in inputs]
+    torch.cuda.synchronize()
+    got = []
+    for _ in range(20):
+        for (a_n, bank, idx), w, stream in zip(inputs, want, streams):
+            with torch.cuda.stream(stream):
+                denom, e = infonce.infonce_fwd(a_n, bank, idx, 1 / T)
+                got.append((denom, e,
+                            infonce.infonce_bwd(e, bank, idx, w[3]), w))
+    torch.cuda.synchronize()
+    for denom, e, ga, w in got:
+        assert torch.equal(denom, w[0]) and torch.equal(e, w[1]) \
+            and torch.equal(ga, w[2])
 
 
 @pytest.mark.cuda
