@@ -174,10 +174,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
    --compute_dtype float32`` for 4 steps on phase 6's tree and (e)
    ``train_arco_3d --compute_dtype float32`` for 4 on phase 9's volumes.
    Every other path launches no f32 route, and phase 16 no bf16 one.
-   Phase 16 runs before phase 15.
+   Phase 16 runs before phase 15;
+17. drive the 2D method-quality gate (``scripts/torch_validate_semi_
+   synthetic.py``: U-Net at 256², 3 classes, bs 4+4, bf16), last: (a) the
+   InfoNCE pair at its shape (3 classes over full 50000/30000/30000
+   banks, 'smc' draws) and pool_sims at 8 query rows against their plain
+   versions, timed with their bounds and the matmul beside pool_sims; (b)
+   the script's own ``run_seed("shifted", 0)`` at full width, cut to 3
+   warmup and 5 tune steps an arm: every loss finite, every Dice in [0,
+   1], each bf16 route launched once an ARCO step and never on a
+   supervised one, ms a step of each arm.
 
 It then prints one JSON line with the phases' numbers (phase 14's under
-"serving", phase 15's under "data_parallel", phase 16's under "f32"), one
+"serving", phase 15's under "data_parallel", phase 16's under "f32",
+phase 17's under "quality_gate"), one
 with the kernels' numbers (the three bf16 routes, then the three f32
 routes "infonce_fwd_f32", "infonce_bwd_f32" and "pool_sims_f32", whose
 top-level numbers are at the 2D shape against the bf16 pool, launches from
@@ -187,7 +197,8 @@ counts phase 9's handoff leg; "launches_zoo" counts phase 10's unet_stego
 leg, "launches_natural" phase 12's DeepLab-v2 leg, whose shapes' records
 sit under "natural", "launches_data_parallel" phase 15a's mesh steps and
 "launches_data_parallel_ranks" each rank's steps of the route's dtype in
-15b; pool_sims
+15b, "launches_gate" phase 17b's run, each bf16 route's record at the
+gate's shape under "gate"; pool_sims
 also at 16 and 2 query rows under "rows16" and "rows2") and, last, the
 device line. Without a CUDA GPU, or
 without the repository beside it, it prints no result and exits non-zero.
@@ -3616,6 +3627,62 @@ def phase_f32(device, workdir, root, vols):
     return counts, cli_counts, kernels, out
 
 
+# phase 17, the 2D method-quality gate (scripts/torch_validate_semi_
+# synthetic.py): U-Net at 256², 3 classes (banks 50000, 30000, 30000), bs
+# 4+4, so pool_sims takes 8 query rows (rep_u and rep_u_teacher); the run
+# is cut to 3 warmup and 5 tune steps an arm (the gate takes 150 + 1500)
+GATE_CAPS = (50000, 30000, 30000)
+GATE_ROWS, GATE_WARM, GATE_TUNE = 8, 3, 5
+
+
+def phase_gate(device):
+    """Phase 17, the 2D method-quality gate's machinery at its shapes: (a)
+    the InfoNCE pair at 3 classes over full banks ('smc' draws) and
+    pool_sims at 8 query rows of F = 496 x 256 x 256 against their plain
+    versions, timed with their bounds (and the matmul beside pool_sims);
+    (b) the gate script's own run_seed("shifted", 0) at full width, cut to
+    3 warmup and 5 tune steps an arm: every loss finite, every Dice in [0,
+    1], each bf16 route launched once an ARCO step and never on a
+    supervised one."""
+    import torch
+    from arco_torch.kernels import launch_counts, reset_launch_counts
+    t_start = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(17)
+    per_draw = _infonce_draws(gen, device, GATE_CAPS, C, (MAIN_DRAW,))
+    kernels = {name: {**per_draw[name][MAIN_DRAW], "library_ms": None}
+               for name in ("infonce_fwd", "infonce_bwd")}
+    kernels["pool_sims"] = _pool_sims_at(gen, device, GATE_ROWS,
+                                         C * HW * HW)
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_validate_semi_synthetic as gate
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    run = gate.run_seed("shifted", 0, device, n_warm=GATE_WARM,
+                        n_tune=GATE_TUNE)
+    counts = launch_counts()
+    steps = {"warmup": GATE_WARM, "supervised": GATE_TUNE,
+             "arco": GATE_TUNE}
+    for arm, n in steps.items():
+        rec = run["timing"][arm]
+        if rec["steps"] != n or rec["nonfinite_losses"] \
+                or not math.isfinite(rec["final_loss"]):
+            raise AssertionError(f"gate {arm}: {rec}")
+        _check_launches(f"gate {arm}, {n} steps", rec["launches"],
+                        n if arm == "arco" else 0)
+    _check_launches(f"gate, {GATE_TUNE} ARCO steps", counts, GATE_TUNE)
+    dices = [run["warmup_dice"], run["supervised_dice"], run["arco_dice"],
+             *run["supervised_buckets"], *run["arco_buckets"]]
+    if not all(0.0 <= d <= 1.0 for d in dices):
+        raise AssertionError(f"gate: a Dice outside [0, 1]: {dices}")
+    _log(f"  (b) run_seed: {run['seconds']} s; ms a step: "
+         + ", ".join(f"{arm} {run['timing'][arm]['ms_per_step']}"
+                     for arm in steps)
+         + f"; launches {counts}")
+    out = {"run": run, "s": time.perf_counter() - t_start}
+    _log(f"phase 17 (quality gate) in {out['s']:.1f} s")
+    return counts, kernels, out
+
+
 def main():
     try:
         import torch
@@ -3661,6 +3728,7 @@ def main():
             device, workdir, root, vols)
         dp_counts, dp_rank_counts, rows2, data_parallel = \
             phase_data_parallel(device, workdir)
+    gate_counts, gate_kernels, quality_gate = phase_gate(device)
     for k in kernels:
         name = k["name"]
         k["launches"] = counts[name]
@@ -3669,6 +3737,8 @@ def main():
         k["launches_zoo"] = zoo_counts[name]
         k["launches_natural"] = natural_counts[name]
         k["launches_data_parallel"] = dp_counts[name]
+        k["launches_gate"] = gate_counts[name]
+        k["gate"] = gate_kernels[name]
         if name == "pool_sims":
             k["rows2"] = rows2
         k["launches_data_parallel_ranks"] = [c[name] for c in
@@ -3697,6 +3767,7 @@ def main():
             "launches_cli": f32_cli_counts["2d"][name],
             "launches_data_parallel_ranks": [c[name] for c in
                                              dp_rank_counts["f32"]],
+            "launches_gate": gate_counts[name],
             "shapes": rec,
             "3d": {"launches_cli": f32_cli_counts["3d"][name]}})
     print(json.dumps({"main_path": main_path, "cli": cli,
@@ -3706,7 +3777,8 @@ def main():
                       "natural": {k: v for k, v in natural.items()
                                   if k != "kernels"},
                       "pretrained": pretrained, "serving": serving,
-                      "data_parallel": data_parallel, "f32": f32}))
+                      "data_parallel": data_parallel, "f32": f32,
+                      "quality_gate": quality_gate}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
