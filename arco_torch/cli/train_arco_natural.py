@@ -111,7 +111,10 @@ def _start_logging(snapshot_path: str):
     log_provenance()
 
 
-def main(argv=None):
+def main(argv=None, wrap_step=None):
+    """Train; returns the run's snapshot directory. ``wrap_step``, where
+    given, takes the step function and returns the one the loop calls (a
+    caller's timing or checks around each step)."""
     args = build_parser().parse_args(argv)
     defaults = NaturalImageDataset.DEFAULTS[args.dataset]
     num_classes = args.num_classes or defaults["num_classes"]
@@ -189,6 +192,8 @@ def main(argv=None):
                                          optim.nesterov)
     step_fn = make_arco_step(modules, cfg, num_classes, args.max_iterations,
                              optim, device=device)
+    if wrap_step is not None:
+        step_fn = wrap_step(step_fn)
 
     pipeline = TwoStreamPipeline(ds_l, ds_u, args.batch_size, seed=args.seed)
     logger = MetricLogger(snapshot_path)

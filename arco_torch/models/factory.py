@@ -43,6 +43,8 @@ The natural-image CLIs build their models with ``natural_model`` and
 
 from __future__ import annotations
 
+from arco_torch.models.init import jax_init_
+
 ARCO_FEATURE_MAPS = (256, 128, 64, 32, 16)
 
 # the channel widths of each 2D model's feature maps (coarse -> fine); the
@@ -81,6 +83,13 @@ def check_model(net_type: str, cli: str) -> None:
 
 def net_factory(net_type: str = "unet", in_chns: int = 1, class_num: int = 3,
                 img_size=256, **kwargs):
+    """The 2D model of ``net_type``, drawn as JAX draws it (``jax_init_``)
+    from torch's global generator."""
+    return jax_init_(_net_2d(net_type, in_chns, class_num, img_size,
+                             **kwargs))
+
+
+def _net_2d(net_type, in_chns, class_num, img_size, **kwargs):
     from arco_torch.models import unet2d
     simple = {"unet": unet2d.UNet, "unet_ds": unet2d.UNetDS,
               "unet_cct": unet2d.UNetCCT, "unet_urpc": unet2d.UNetURPC}
@@ -144,6 +153,12 @@ def check_model_3d(net_type: str, cli: str) -> None:
 
 def net_factory_3d(net_type: str = "vnet", in_chns: int = 1,
                    class_num: int = 2, **kwargs):
+    """The 3D model of ``net_type``, drawn as JAX draws it (``jax_init_``)
+    from torch's global generator."""
+    return jax_init_(_net_3d(net_type, in_chns, class_num, **kwargs))
+
+
+def _net_3d(net_type, in_chns, class_num, **kwargs):
     if net_type == "vnet":
         from arco_torch.models.vnet3d import VNet
         return VNet(n_channels=in_chns, n_classes=class_num, **kwargs)
@@ -194,8 +209,10 @@ def check_natural_model(model: str, crop, cli: str) -> None:
 def natural_model(model: str, backbone: str = "resnet101",
                   num_classes: int = 21):
     """The natural-image CLIs' model: a DeepLab (``model_generator``) for
-    the ``deeplab*`` keys, else the 2D model with 3 input channels."""
+    the ``deeplab*`` keys, else the 2D model with 3 input channels; drawn
+    as JAX draws it (``jax_init_``)."""
     if model.startswith("deeplab"):
         from arco_torch.models.deeplab import model_generator
-        return model_generator(model, backbone, num_classes=num_classes)
+        return jax_init_(model_generator(model, backbone,
+                                         num_classes=num_classes))
     return net_factory(model, in_chns=3, class_num=num_classes)

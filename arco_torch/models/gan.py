@@ -31,6 +31,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from arco_torch.models.init import jax_init_
 from arco_torch.models.layers import BatchNorm2d, DropoutDraws, InstanceNorm
 
 
@@ -228,31 +229,32 @@ class NLayerDiscriminator(nn.Module):
 def define_g(input_nc: int, output_nc: int, ngf: int, which_model_netg: str,
              norm: str = "batch", use_dropout: bool = False) -> nn.Module:
     """networks_other.py:143-164 (torch needs ``input_nc``, which flax
-    infers from the input)."""
+    infers from the input); drawn as JAX draws it (``jax_init_``)."""
     kw = dict(norm_type=norm, use_dropout=use_dropout)
     if which_model_netg == "resnet_9blocks":
-        return ResnetGenerator(input_nc, output_nc, ngf, n_blocks=9, **kw)
-    if which_model_netg == "resnet_6blocks":
-        return ResnetGenerator(input_nc, output_nc, ngf, n_blocks=6, **kw)
-    if which_model_netg == "unet_128":
-        return UnetGenerator(input_nc, output_nc, 7, ngf, **kw)
-    if which_model_netg == "unet_256":
-        return UnetGenerator(input_nc, output_nc, 8, ngf, **kw)
-    raise NotImplementedError(
-        f"Generator model name [{which_model_netg}] is not recognized")
+        net = ResnetGenerator(input_nc, output_nc, ngf, n_blocks=9, **kw)
+    elif which_model_netg == "resnet_6blocks":
+        net = ResnetGenerator(input_nc, output_nc, ngf, n_blocks=6, **kw)
+    elif which_model_netg == "unet_128":
+        net = UnetGenerator(input_nc, output_nc, 7, ngf, **kw)
+    elif which_model_netg == "unet_256":
+        net = UnetGenerator(input_nc, output_nc, 8, ngf, **kw)
+    else:
+        raise NotImplementedError(
+            f"Generator model name [{which_model_netg}] is not recognized")
+    return jax_init_(net)
 
 
 def define_d(input_nc: int, ndf: int, which_model_netd: str,
              n_layers_d: int = 3, norm: str = "batch",
              use_sigmoid: bool = False) -> nn.Module:
-    """networks_other.py:167-185."""
-    if which_model_netd == "basic":
-        return NLayerDiscriminator(input_nc, ndf, 3, norm, use_sigmoid)
-    if which_model_netd == "n_layers":
-        return NLayerDiscriminator(input_nc, ndf, n_layers_d, norm,
-                                   use_sigmoid)
-    raise NotImplementedError(
-        f"Discriminator model name [{which_model_netd}] is not recognized")
+    """networks_other.py:167-185; drawn as JAX draws it (``jax_init_``)."""
+    if which_model_netd not in ("basic", "n_layers"):
+        raise NotImplementedError(f"Discriminator model name "
+                                  f"[{which_model_netd}] is not recognized")
+    n_layers = 3 if which_model_netd == "basic" else n_layers_d
+    return jax_init_(NLayerDiscriminator(input_nc, ndf, n_layers, norm,
+                                         use_sigmoid))
 
 
 def get_n_parameters(model: nn.Module) -> int:

@@ -330,9 +330,10 @@ class GridAttentionBlockTORR(nn.Module):
         self.psi = None
         if use_psi:
             self.psi = conv(inter_channels, 1, 1)
-            nn.init.constant_(self.psi.bias, {
-                "concatenation_sigmoid": 3.0,
-                "concatenation_softmax": 10.0}.get(mode, 0.0))
+            # JAX's bias_init; jax_init_ keeps it (models/init.py)
+            self.psi.jax_bias = {"concatenation_sigmoid": 3.0,
+                                 "concatenation_softmax": 10.0}.get(mode, 0.0)
+            nn.init.constant_(self.psi.bias, self.psi.jax_bias)
         self.W = None
         if use_w:
             w = conv(in_channels, in_channels, 1)

@@ -72,6 +72,7 @@ from arco_torch.losses.contrastive import (MemoBank,
                                            create_memobank, descending_rank)
 from arco_torch.losses.supervised import cross_entropy, dice_loss, one_hot
 from arco_torch.models.heads import FeatureExtractor, QRepresentation
+from arco_torch.models.init import jax_init_
 from arco_torch.models.layers import running_stats_frozen, sync_batch_norm
 from arco_torch.ops import normalize
 from arco_torch.ops.collectives import BatchShard
@@ -175,15 +176,16 @@ def make_arco_modules(model, width: int, height: int, batch_size: int,
     3D: fea_dim [128,64,32,16,16] -> fused_dim 16 (train_arco_3d.py:
     208-216), the heads' convs 3-D for a model with ``spatial_dims`` 3.
     ``total_batch`` (labeled + unlabeled, the TPS warp's batch) defaults to
-    2 * batch_size."""
+    2 * batch_size. The heads draw JAX's init (``jax_init_``) from torch's
+    global generator; ``model`` is taken as built."""
     fused = int(fused_dim) if fused_dim else int(sum(feature_channels))
     total = total_batch if total_batch is not None else batch_size * 2
     nd = getattr(model, "spatial_dims", 2)
     return ArcoModules(
         model=model,
-        feature_extractor=FeatureExtractor(tuple(feature_channels), fused,
-                                           nd),
-        q_representation=QRepresentation(fused, nd),
+        feature_extractor=jax_init_(
+            FeatureExtractor(tuple(feature_channels), fused, nd)),
+        q_representation=jax_init_(QRepresentation(fused, nd)),
         tps=RandTPS(width, height, batch_size=total, sigma=tps_sigma,
                     random_scale=(0.8, 1.2), mode="affine"))
 

@@ -40,6 +40,7 @@ from arco_torch.losses.supervised import (cross_entropy, dice_loss,
                                           kld_batchmean)
 from arco_torch.models.heads import (LatentMLP, LatentPredictor,
                                      OutputsPredictor, ProjectionHead)
+from arco_torch.models.init import jax_init_
 from arco_torch.ops.patches import patch_grid_positions, pooled_patch_grid
 from arco_torch.ops.ring_buffer import enqueue_fixed
 from arco_torch.train import freeze
@@ -65,20 +66,24 @@ def make_isd_modules(model, num_classes: int, latent_feature_size: int = 512,
     ``latent_channels`` is the latent head's hidden width (JAX's
     ``input_channels``); its input width is the channel count of the
     model's latent: the model's ``latent_channels`` attribute (the V-Net's
-    128, UNet3D's 256), else ``latent_channels`` (the 2D U-Net's 256)."""
+    128, UNet3D's 256), else ``latent_channels`` (the 2D U-Net's 256).
+    The heads draw JAX's init (``jax_init_``) from torch's global
+    generator; ``model`` is taken as built."""
     nd = getattr(model, "spatial_dims", 2)
     latent_width = getattr(model, "latent_channels", latent_channels)
     return ISDModules(
         model=model,
-        latent_head=LatentMLP(input_channels=latent_channels,
-                              num_class=latent_feature_size,
-                              pooling_size=latent_pooling_size,
-                              latent_channels=latent_width, nd=nd),
-        latent_predictor=LatentPredictor(feature_size=latent_feature_size),
-        outputs_head=ProjectionHead(num_classes, proj_dim=num_classes,
-                                    output_pooling_size=output_pooling_size,
-                                    nd=nd),
-        outputs_predictor=OutputsPredictor(num_classes=num_classes, nd=nd))
+        latent_head=jax_init_(LatentMLP(
+            input_channels=latent_channels, num_class=latent_feature_size,
+            pooling_size=latent_pooling_size, latent_channels=latent_width,
+            nd=nd)),
+        latent_predictor=jax_init_(
+            LatentPredictor(feature_size=latent_feature_size)),
+        outputs_head=jax_init_(ProjectionHead(
+            num_classes, proj_dim=num_classes,
+            output_pooling_size=output_pooling_size, nd=nd)),
+        outputs_predictor=jax_init_(
+            OutputsPredictor(num_classes=num_classes, nd=nd)))
 
 
 # the (teacher, student) pairs of the EMA: not the predictors

@@ -183,11 +183,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the script's own ``run_seed("shifted", 0)`` at full width, cut to 3
    warmup and 5 tune steps an arm: every loss finite, every Dice in [0,
    1], each bf16 route launched once an ARCO step and never on a
-   supervised one, ms a step of each arm.
+   supervised one, ms a step of each arm;
+18. drive the two other gate families, last: (a) the three bf16 routes at
+   their shapes against their plain versions, timed with their bounds:
+   noisy3d's (V-Net fused to C = 16, 3 classes over full
+   50000/30000/30000 banks, 'smc' draws; pool_sims at 4 query rows of F =
+   16 x 64 x 64 x 32) and the natural gate's (U-Net at 64², C = 496, 4
+   classes over full 512-row banks, 32 anchors x 64 negatives; pool_sims
+   at 8 query rows of F = 496 x 64 x 64 against 8 pool rows); (b) the
+   gate script's ``run_seed("noisy3d", 0)`` at the gate's protocol (sigma
+   0.26, 2 labeled volumes of 64x64x32, 128 unlabeled, bs 2+2), cut to 3
+   warmup and 5 tune steps an arm: every loss finite, every Dice in [0,
+   1], each bf16 route once a step on the ``arco`` and ``arco_confmask``
+   arms and never on the supervised ones; (c)
+   ``torch_validate_natural.run_seed(0)`` through the port's natural CLIs
+   on a fixture written into the phase's directory, cut to 3 warmup and 5
+   iterations an arm: mIoUs in [0, 1], every loss finite, each bf16 route
+   once an iteration on every arm (the supervised arms zero the terms'
+   weights but compute them, as JAX's do).
 
 It then prints one JSON line with the phases' numbers (phase 14's under
 "serving", phase 15's under "data_parallel", phase 16's under "f32",
-phase 17's under "quality_gate"), one
+phase 17's under "quality_gate", phase 18's under "quality_gate_rest"),
+one
 with the kernels' numbers (the three bf16 routes, then the three f32
 routes "infonce_fwd_f32", "infonce_bwd_f32" and "pool_sims_f32", whose
 top-level numbers are at the 2D shape against the bf16 pool, launches from
@@ -198,7 +216,9 @@ leg, "launches_natural" phase 12's DeepLab-v2 leg, whose shapes' records
 sit under "natural", "launches_data_parallel" phase 15a's mesh steps and
 "launches_data_parallel_ranks" each rank's steps of the route's dtype in
 15b, "launches_gate" phase 17b's run, each bf16 route's record at the
-gate's shape under "gate"; pool_sims
+gate's shape under "gate", "launches_gate_3d" / "launches_gate_natural"
+phase 18b / 18c's runs, each bf16 route's records at their shapes under
+"gate_3d" / "gate_natural"; pool_sims
 also at 16 and 2 query rows under "rows16" and "rows2") and, last, the
 device line. Without a CUDA GPU, or
 without the repository beside it, it prints no result and exits non-zero.
@@ -365,12 +385,12 @@ def phase_build():
             _log("  ptxas:", line.strip())
 
 
-def _neg_draws(gen, device, caps, funcs):
-    """neg_idx [K, Q, N] int32 drawn over the full banks of capacities
+def _neg_draws(gen, device, caps, funcs, q=Q, n=N):
+    """neg_idx [K, q, n] int32 drawn over the full banks of capacities
     ``caps``, for each of ``funcs``: uniform (the draw phase 3 first timed),
-    and Q*N stratified ('smc', the main path's) or antithetic ('asmc') ranks
+    and q*n stratified ('smc', the main path's) or antithetic ('asmc') ranks
     per class, reshaped as losses/contrastive.py does, so that
-    neg_idx[k, q, n] = rank[k, n*Q + q]."""
+    neg_idx[k, i, j] = rank[k, j*q + i]."""
     import torch
     from arco_torch.ops import sampling
     k = len(caps)
@@ -378,20 +398,20 @@ def _neg_draws(gen, device, caps, funcs):
     out = {}
     for func in funcs:
         if func == "uniform":
-            out[func] = (torch.rand((k, Q, N), generator=gen, device=device)
+            out[func] = (torch.rand((k, q, n), generator=gen, device=device)
                          * caps[:, None, None]).to(torch.int32)
             continue
-        ranks = sampling.draw_indices(caps, Q * N, func=func, generator=gen,
+        ranks = sampling.draw_indices(caps, q * n, func=func, generator=gen,
                                       device=device)
-        out[func] = ranks.reshape(k, N, Q).transpose(1, 2) \
+        out[func] = ranks.reshape(k, n, q).transpose(1, 2) \
             .to(torch.int32).contiguous()
     return out
 
 
-def _infonce_inputs(gen, device, caps, c, funcs, dtype=None):
-    """A full bank (steady state) of normalized c-channel rows, anchors,
-    prototypes, and negatives drawn from each class's capacity; bf16, or
-    ``dtype``."""
+def _infonce_inputs(gen, device, caps, c, funcs, dtype=None, q=Q, n=N):
+    """A full bank (steady state) of normalized c-channel rows, q anchors a
+    class, prototypes, and n negatives an anchor drawn from each class's
+    capacity; bf16, or ``dtype``."""
     import torch
     bf = dtype or torch.bfloat16
     k = len(caps)
@@ -399,11 +419,11 @@ def _infonce_inputs(gen, device, caps, c, funcs, dtype=None):
                        dtype=bf)
     for i in range(k):
         _l2n_rows(bank[i])
-    a_n = _l2n_rows(torch.randn((k * Q, c), generator=gen, device=device,
-                                dtype=bf)).view(k, Q, c)
+    a_n = _l2n_rows(torch.randn((k * q, c), generator=gen, device=device,
+                                dtype=bf)).view(k, q, c)
     p_n = _l2n_rows(torch.randn((k, c), generator=gen, device=device,
                                 dtype=bf))
-    return a_n, p_n, bank, _neg_draws(gen, device, caps, funcs)
+    return a_n, p_n, bank, _neg_draws(gen, device, caps, funcs, q, n)
 
 
 def _staged_rows(neg_idx):
@@ -522,12 +542,13 @@ def _infonce_at(a_n, p_n, bank, neg_idx):
     return out
 
 
-def _infonce_draws(gen, device, caps, c, funcs, dtype=None):
+def _infonce_draws(gen, device, caps, c, funcs, dtype=None, q=Q, n=N):
     """The InfoNCE pair (bf16, or the route of ``dtype``) against its plain
-    versions at each draw of ``funcs``: {kernel name: {func: record}}."""
+    versions at each draw of ``funcs``, q anchors and n negatives: {kernel
+    name: {func: record}}."""
     import torch
     a_n, p_n, bank, draws = _infonce_inputs(gen, device, caps, c, funcs,
-                                            dtype)
+                                            dtype, q, n)
     per_draw = {}
     for func, neg_idx in draws.items():
         for name, r in _infonce_at(a_n, p_n, bank, neg_idx).items():
@@ -540,8 +561,9 @@ def _infonce_draws(gen, device, caps, c, funcs, dtype=None):
     return per_draw
 
 
-def _pool_sims_at(gen, device, b, f, query_dtype=None, pool_dtype=None):
-    """pool_sims on b queries of f features against POOL_K pool rows: each
+def _pool_sims_at(gen, device, b, f, query_dtype=None, pool_dtype=None,
+                  pool_k=POOL_K):
+    """pool_sims on b queries of f features against pool_k pool rows: each
     query near one pool row, so the sims span [0, ~0.7]; against its plain
     version, two launches bit-identical, timed, and torch.matmul timed as
     the library yardstick ("library_ms" one call, "library_device_ms" as
@@ -556,12 +578,12 @@ def _pool_sims_at(gen, device, b, f, query_dtype=None, pool_dtype=None):
     bf = torch.bfloat16
     qd, pd = query_dtype or bf, pool_dtype or bf
     f32 = qd == torch.float32
-    pool = _l2n_rows(torch.randn((POOL_K, f), generator=gen, device=device,
+    pool = _l2n_rows(torch.randn((pool_k, f), generator=gen, device=device,
                                  dtype=pd))
     queries = torch.randn((b, f), generator=gen, device=device, dtype=qd)
     for i in range(b):
         queries[i] = (queries[i].float() * (1.0 / math.sqrt(f))
-                      + 0.7 * (i + 1) / b * pool[i % POOL_K].float()).to(qd)
+                      + 0.7 * (i + 1) / b * pool[i % pool_k].float()).to(qd)
     _l2n_rows(queries)
     label = f"pool_sims{'_f32' if f32 else ''} ({b} x {f}, {pd} pool)"
     sims = pool_sims.pool_similarities(queries, pool)
@@ -578,8 +600,8 @@ def _pool_sims_at(gen, device, b, f, query_dtype=None, pool_dtype=None):
     if not torch.equal(sims, pool_sims.pool_similarities(queries, pool)):
         raise AssertionError(f"{label}: two launches differ")
     bound, by = _bound_ms(
-        b * f * queries.element_size() + POOL_K * f * pool.element_size()
-        + sims.numel() * 4, 2 * b * POOL_K * f,
+        b * f * queries.element_size() + pool_k * f * pool.element_size()
+        + sims.numel() * 4, 2 * b * pool_k * f,
         PEAK_F32_OPS_PER_S if f32 else PEAK_BF16_OPS_PER_S)
 
     def sims_fn():
@@ -1948,6 +1970,7 @@ def _rest_models():
     """name -> (constructor, input shapes) of phase 11a's card-vs-CPU check."""
     from arco_torch.models import (discriminator, gan, net_factory,
                                    net_factory_3d, vgg)
+    from arco_torch.models.init import jax_init_
     return {
         "nnUNet_2d": (lambda: net_factory("nnUNet", class_num=4),
                       [(2, 1, 64, 64)]),
@@ -1958,19 +1981,21 @@ def _rest_models():
         "resnet_generator": (lambda: gan.define_g(3, 3, 64,
                                                   "resnet_9blocks"),
                              [(2, 3, 64, 64)]),
-        "unet_generator": (lambda: gan.UnetGenerator(3, 3, num_downs=6),
-                           [(2, 3, 64, 64)]),
+        "unet_generator": (lambda: jax_init_(
+            gan.UnetGenerator(3, 3, num_downs=6)), [(2, 3, 64, 64)]),
         "nlayer_discriminator": (lambda: gan.define_d(3, 64, "basic"),
                                  [(2, 3, 64, 64)]),
-        "fc_discriminator": (lambda: discriminator.FCDiscriminator(4),
-                             [(2, 4, 224, 224), (2, 1, 224, 224)]),
+        "fc_discriminator": (
+            lambda: jax_init_(discriminator.FCDiscriminator(4)),
+            [(2, 4, 224, 224), (2, 1, 224, 224)]),
         "fc3d_discriminator": (
-            lambda: discriminator.FC3DDiscriminator(2),
+            lambda: jax_init_(discriminator.FC3DDiscriminator(2)),
             [(2, 2, 32, 32, 32), (2, 1, 32, 32, 32)]),
-        "vgg19_features": (lambda: vgg.VGG19Features(
-            normalize_features=True), [(2, 3, 64, 64)]),
-        "deepcluster_vgg16": (lambda: vgg.DeepClusterVGG16(sobel=True),
-                              [(2, 3, 224, 224)]),
+        "vgg19_features": (lambda: jax_init_(vgg.VGG19Features(
+            normalize_features=True)), [(2, 3, 64, 64)]),
+        "deepcluster_vgg16": (
+            lambda: jax_init_(vgg.DeepClusterVGG16(sobel=True)),
+            [(2, 3, 224, 224)]),
     }
 
 
@@ -2062,6 +2087,7 @@ def _rest_timing(device):
     channels, bs 4; VGG19Features at 224², bs 4."""
     import torch
     from arco_torch.models import gan, net_factory, net_factory_3d, vgg
+    from arco_torch.models.init import jax_init_
     gen = torch.Generator(device=device).manual_seed(12)
     cases = {
         "nnUNet_2d": (lambda: net_factory("nnUNet", class_num=4),
@@ -2075,7 +2101,7 @@ def _rest_timing(device):
                              (ZOO_BS, 3, ZOO_HW, ZOO_HW)),
         "nlayer_discriminator": (lambda: gan.define_d(3, 64, "basic"),
                                  (ZOO_BS, 3, ZOO_HW, ZOO_HW)),
-        "vgg19_features": (lambda: vgg.VGG19Features(),
+        "vgg19_features": (lambda: jax_init_(vgg.VGG19Features()),
                            (ZOO_BS, 3, VGG_HW, VGG_HW)),
     }
     out = {}
@@ -2351,17 +2377,12 @@ def _natural_reference(device):
     return out
 
 
-@contextlib.contextmanager
 def _timed_natural_steps(times):
-    """Wrap the natural CLI's step so each step's time, between two
+    """A ``wrap_step`` for the natural CLI: each step's time, between two
     synchronizations, lands in ``times`` (ms)."""
     import torch
-    from arco_torch.cli import train_arco_natural
-    real = train_arco_natural.make_arco_step
 
-    def make(*args, **kwargs):
-        step = real(*args, **kwargs)
-
+    def wrap(step):
         def timed(state, batch, draws=None):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2370,11 +2391,7 @@ def _timed_natural_steps(times):
             times.append((time.perf_counter() - t0) * 1e3)
             return metrics
         return timed
-    train_arco_natural.make_arco_step = make
-    try:
-        yield
-    finally:
-        train_arco_natural.make_arco_step = real
+    return wrap
 
 
 def _natural_run(argv, steps, label):
@@ -2389,9 +2406,8 @@ def _natural_run(argv, steps, label):
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    with _timed_natural_steps(times):
-        run = train_arco_natural.main(argv + ["--max_iterations",
-                                              str(steps)])
+    run = train_arco_natural.main(argv + ["--max_iterations", str(steps)],
+                                  wrap_step=_timed_natural_steps(times))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
@@ -2861,26 +2877,36 @@ def _serving_synapse(device, workdir):
     return {"test_synapse": line, "test_synapse_s": secs}
 
 
-# the interior scores of the sharded and unsharded forwards differed by up
-# to 7.66e-5 on the H100 (cuDNN picks other algorithms for the two
-# depths); each run also measures what a crop off by one slab would give
+# the bound on the sharded forward's scores against the forward of the
+# volume with the halo's zero slabs added: 1e-3, as when the interior of
+# the unsharded forward was held to it (7.66e-5 read from torch's default
+# init); each run also measures what a crop off by one slab would give
 # and requires it to exceed this bound
 SHARD_SCORE_TOL = 1e-3
+# the bound on how far the halo's zero slabs move the unsharded forward's
+# scores in depth [24, d - 24): twice the 7.72e-3 read on an H100 80GB
+# HBM3 from JAX's initial weights, so that a change in how the forward
+# treats the depth edges fails the phase
+SHARD_EDGE_TOL = 2 * 7.72e-3
 
 
 def _serving_sharded(device, workdir, seg3):
     """(f) predict_volume_sharded over a one-rank NCCL process group,
     against the unsharded whole-volume forward as
     tests/test_inference_sharded.py:24-41 holds it: the input's shape,
-    int32, >= 97% agreement, and away from the depth edges the same
-    scores. On the card the two forwards see inputs of other depths (176
-    and 144), for which cuDNN may pick other algorithms, so the scores are
-    held at SHARD_SCORE_TOL and a label may differ only where the
-    unsharded forward's two best scores lie within 2 * SHARD_SCORE_TOL.
-    At one rank no halo is exchanged, so this holds the padding and the
-    crop; the scores of a crop off by one slab (the unsharded forward
-    shifted one slab in depth) must lie beyond SHARD_SCORE_TOL, so the
-    bound would see that fault."""
+    int32, >= 97% agreement. At one rank no halo is exchanged: the
+    sharded forward is the forward of the volume extended by the halo's
+    16 zero slabs at each depth end, cropped back (spatial.py's contract:
+    it equals the unsharded forward except within the receptive field's
+    half-width of the volume's edges, which for the V-Net spans the whole
+    144-slab depth: from JAX's initial weights the two differ by up to
+    7.7e-3 at depth 24). So the padding and the crop are held against
+    that extended forward: its scores within SHARD_SCORE_TOL everywhere,
+    a label differing only where its two best scores lie within 2 *
+    SHARD_SCORE_TOL, and a crop off by one slab (the extended forward
+    shifted one slab in depth) beyond SHARD_SCORE_TOL, so the bound would
+    see that fault; and the extended forward is tied to the unsharded one
+    away from the depth edges by SHARD_EDGE_TOL."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2909,27 +2935,37 @@ def _serving_sharded(device, workdir, seg3):
         dist.destroy_process_group()
     with torch.no_grad():
         want_p = seg3._probs(x.to(device))
+        ext_p = seg3._probs(torch.nn.functional.pad(
+            x.to(device), (0, 0, 0, 0, 16, 16)))[:, :, 16:-16]
+    full = (slice(None), slice(None), slice(0, d), slice(0, h), slice(0, w))
+    score_err = (got_p[full] - ext_p[full]).abs().max().item()
     inner = (slice(None), slice(None), slice(24, d - 24), slice(0, h),
              slice(0, w))
-    score_err = (got_p[inner] - want_p[inner]).abs().max().item()
+    edge_effect = (ext_p[inner] - want_p[inner]).abs().max().item()
     shifted = (slice(None), slice(None), slice(25, d - 23), slice(0, h),
                slice(0, w))
-    crop_fault_err = (want_p[shifted] - want_p[inner]).abs().max().item()
-    top2 = want_p[0, :, :d, :h, :w].topk(2, dim=0).values
+    crop_fault_err = (ext_p[shifted] - ext_p[inner]).abs().max().item()
+    top2 = ext_p[0, :, :d, :h, :w].topk(2, dim=0).values
     margin = (top2[0] - top2[1]).cpu().numpy()
+    ext = ext_p.argmax(1)[0, :d, :h, :w].cpu().numpy()
     want = want_p.argmax(1)[0, :d, :h, :w].cpu().numpy()
     agree = float((pred == want).mean())
-    flips = pred[24:d - 24] != want[24:d - 24]
-    worst = float(margin[24:d - 24][flips].max()) if flips.any() else 0.0
+    flips = pred != ext
+    worst = float(margin[flips].max()) if flips.any() else 0.0
     _log(f"predict_volume_sharded (1 NCCL rank, {LA_CASE}, halo 16): "
          f"{secs:.3f} s, agreement with the unsharded forward {agree:.6f}; "
-         f"in depth [24, {d - 24}): scores within {score_err:.2e}, "
-         f"{int(flips.sum())} labels differ, the widest of their margins "
-         f"{worst:.2e}; a crop off by one slab would be "
-         f"{crop_fault_err:.2e} off")
+         f"against the forward with the halo's zero slabs: scores within "
+         f"{score_err:.2e}, {int(flips.sum())} labels differ, the widest "
+         f"of their margins {worst:.2e}; a crop off by one slab would be "
+         f"{crop_fault_err:.2e} off; the zero slabs move the unsharded "
+         f"forward's scores in depth [24, {d - 24}) by {edge_effect:.2e}")
     if pred.shape != vol.shape or pred.dtype != np.int32 or agree < 0.97 \
             or score_err > SHARD_SCORE_TOL or worst > 2 * SHARD_SCORE_TOL:
         raise AssertionError("sharded forward differs from the unsharded")
+    if not edge_effect <= SHARD_EDGE_TOL:
+        raise AssertionError(f"the zero slabs move the unsharded forward's "
+                             f"scores in depth [24, {d - 24}) by "
+                             f"{edge_effect:.2e} > {SHARD_EDGE_TOL:.2e}")
     if not crop_fault_err > SHARD_SCORE_TOL:
         raise AssertionError(f"a crop off by one slab moves the scores by "
                              f"{crop_fault_err}, within SHARD_SCORE_TOL: "
@@ -2937,7 +2973,8 @@ def _serving_sharded(device, workdir, seg3):
     return {"sharded_s": secs, "sharded_agreement": agree,
             "sharded_score_err": score_err,
             "sharded_crop_fault_err": crop_fault_err,
-            "sharded_interior_flips": int(flips.sum())}
+            "sharded_edge_effect": edge_effect,
+            "sharded_flips": int(flips.sum())}
 
 
 def _serving_export(device, workdir):
@@ -3683,6 +3720,104 @@ def phase_gate(device):
     return counts, kernels, out
 
 
+# phase 18, the two other gate families: noisy3d (V-Net on 64x64x32
+# volumes, fused dim 16, 3 classes, bs 2+2, ArcoConfig's banks and pool)
+# and natural_striped (U-Net at 64², 4 classes, bs 4+4, the natural
+# script's SMALL config: 512-row banks, 32 anchors x 64 negatives, 8 pool
+# rows); each run cut to 3 warmup and 5 tune steps (iterations) an arm
+GATE3D_VOL, GATE3D_C, GATE3D_ROWS = (64, 64, 32), 16, 4
+NAT_GATE = dict(hw=64, classes=4, caps=512, q=32, n=64, pool_k=8, rows=8)
+
+
+def _gate_rest_kernels(device):
+    """Phase 18a: {route: {"gate_3d": record, "gate_natural": record}}."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(18)
+    out = {name: {} for name in BF16_ROUTES}
+    per_draw = _infonce_draws(gen, device, GATE_CAPS, GATE3D_C,
+                              (MAIN_DRAW,))
+    for name in ("infonce_fwd", "infonce_bwd"):
+        out[name]["gate_3d"] = {**per_draw[name][MAIN_DRAW],
+                                "library_ms": None}
+    out["pool_sims"]["gate_3d"] = _pool_sims_at(
+        gen, device, GATE3D_ROWS, GATE3D_C * math.prod(GATE3D_VOL))
+    g = NAT_GATE
+    per_draw = _infonce_draws(gen, device, (g["caps"],) * g["classes"], C,
+                              (MAIN_DRAW,), q=g["q"], n=g["n"])
+    for name in ("infonce_fwd", "infonce_bwd"):
+        out[name]["gate_natural"] = {**per_draw[name][MAIN_DRAW],
+                                     "library_ms": None}
+    out["pool_sims"]["gate_natural"] = _pool_sims_at(
+        gen, device, g["rows"], C * g["hw"] * g["hw"], pool_k=g["pool_k"])
+    return out
+
+
+def phase_gate_rest(device):
+    """Phase 18 (see the module docstring): the kernels at the noisy3d and
+    natural gates' shapes, then each family's own run cut short."""
+    import torch
+    from arco_torch.kernels import launch_counts, reset_launch_counts
+    t_start = time.perf_counter()
+    kernels = _gate_rest_kernels(device)
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_validate_natural as natural
+    import torch_validate_semi_synthetic as gate
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    run3d = gate.run_seed("noisy3d", 0, device, arms=gate.ARMS_3D,
+                          n_warm=GATE_WARM, n_tune=GATE_TUNE)
+    counts_3d = launch_counts()
+    arco_arms = ("arco", "arco_confmask")
+    for arm in ("warmup", "supervised") + arco_arms:
+        rec = run3d["timing"][arm]
+        n = GATE_WARM if arm == "warmup" else GATE_TUNE
+        if rec["steps"] != n or rec["nonfinite_losses"] \
+                or not math.isfinite(rec["final_loss"]):
+            raise AssertionError(f"gate noisy3d {arm}: {rec}")
+        _check_launches(f"gate noisy3d {arm}, {n} steps", rec["launches"],
+                        n if arm in arco_arms else 0)
+    _check_launches(f"gate noisy3d, 2 x {GATE_TUNE} ARCO steps", counts_3d,
+                    2 * GATE_TUNE)
+    run3d = gate.confmask_run(run3d)
+    dices = [run3d[k] for k in ("warmup_dice", "supervised_dice",
+                                "ref_formula_arco_dice", "arco_dice")]
+    if not all(0.0 <= d <= 1.0 for d in dices):
+        raise AssertionError(f"gate noisy3d: a Dice outside [0, 1]: {dices}")
+    _log(f"  (b) noisy3d run_seed: {run3d['seconds']} s; ms a step: "
+         + ", ".join(f"{arm} {rec['ms_per_step']}"
+                     for arm, rec in run3d["timing"].items())
+         + f"; launches {counts_3d}")
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as workdir:
+        run_nat = natural.run_seed(0, workdir, device, iters=GATE_TUNE,
+                                   warm_iters=GATE_WARM)
+    counts_nat = launch_counts()
+    for arm in ("warmup", "supervised", "arco"):
+        rec = run_nat["timing"][arm]
+        n = GATE_WARM if arm == "warmup" else GATE_TUNE
+        if rec["iters"] != n or rec["nonfinite_losses"]:
+            raise AssertionError(f"gate natural {arm}: {rec}")
+        _check_launches(f"gate natural {arm}, {n} iterations",
+                        rec["launches"], n)
+    _check_launches(f"gate natural, {GATE_WARM} + 2 x {GATE_TUNE} "
+                    "iterations", counts_nat, GATE_WARM + 2 * GATE_TUNE)
+    mious = [run_nat["supervised_miou"], run_nat["arco_miou"],
+             *run_nat["sup_per_class"], *run_nat["arco_per_class"]]
+    if not all(0.0 <= m <= 1.0 for m in mious if m == m):
+        raise AssertionError(f"gate natural: an IoU outside [0, 1]: {mious}")
+    _log(f"  (c) natural run_seed: {run_nat['seconds']} s; ms a step: "
+         + ", ".join(f"{arm} {rec['ms_per_step']}"
+                     for arm, rec in run_nat["timing"].items())
+         + f"; launches {counts_nat}")
+    out = {"noisy3d": run3d, "natural": run_nat,
+           "s": time.perf_counter() - t_start}
+    _log(f"phase 18 (noisy3d and natural gates) in {out['s']:.1f} s")
+    return counts_3d, counts_nat, kernels, out
+
+
 def main():
     try:
         import torch
@@ -3729,6 +3864,8 @@ def main():
         dp_counts, dp_rank_counts, rows2, data_parallel = \
             phase_data_parallel(device, workdir)
     gate_counts, gate_kernels, quality_gate = phase_gate(device)
+    gate3d_counts, gate_nat_counts, rest_kernels, quality_gate_rest = \
+        phase_gate_rest(device)
     for k in kernels:
         name = k["name"]
         k["launches"] = counts[name]
@@ -3739,6 +3876,9 @@ def main():
         k["launches_data_parallel"] = dp_counts[name]
         k["launches_gate"] = gate_counts[name]
         k["gate"] = gate_kernels[name]
+        k["launches_gate_3d"] = gate3d_counts[name]
+        k["launches_gate_natural"] = gate_nat_counts[name]
+        k.update(rest_kernels[name])
         if name == "pool_sims":
             k["rows2"] = rows2
         k["launches_data_parallel_ranks"] = [c[name] for c in
@@ -3768,6 +3908,8 @@ def main():
             "launches_data_parallel_ranks": [c[name] for c in
                                              dp_rank_counts["f32"]],
             "launches_gate": gate_counts[name],
+            "launches_gate_3d": gate3d_counts[name],
+            "launches_gate_natural": gate_nat_counts[name],
             "shapes": rec,
             "3d": {"launches_cli": f32_cli_counts["3d"][name]}})
     print(json.dumps({"main_path": main_path, "cli": cli,
@@ -3778,7 +3920,8 @@ def main():
                                   if k != "kernels"},
                       "pretrained": pretrained, "serving": serving,
                       "data_parallel": data_parallel, "f32": f32,
-                      "quality_gate": quality_gate}))
+                      "quality_gate": quality_gate,
+                      "quality_gate_rest": quality_gate_rest}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

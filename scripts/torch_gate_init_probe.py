@@ -3,13 +3,15 @@
 ``scripts/torch_validate_semi_synthetic.py`` from three kinds of initial
 U-Net, in bf16 and in f32, seed by seed, on one CUDA GPU:
 
-  torch     the gate's own: the port's U-Net as ``net_factory`` draws it
-            under ``seed`` (torch's default init: kaiming-uniform(a =
-            sqrt 5) kernels, variance 1 / (3 fan_in), U(+-1 / sqrt(fan_in))
-            biases);
-  flax      the same U-Net redrawn as flax's default init draws JAX's
-            (lecun-normal: a unit normal truncated at +-2, scaled to
-            variance 1 / fan_in; biases zero), from torch's generator;
+  flax      the gate's own: the port's U-Net as ``net_factory`` draws it
+            under ``seed``, with flax's default init as JAX's draws
+            (``arco_torch/models/init.py:jax_init_``: lecun-normal, a
+            unit normal truncated at +-2 scaled to variance 1 / fan_in;
+            biases zero), from torch's generator;
+  torch     the same U-Net redrawn with torch's default init, which the
+            port's factories drew before they drew JAX's
+            (kaiming-uniform(a = sqrt 5) kernels, variance 1 / (3 fan_in),
+            U(+-1 / sqrt(fan_in)) biases);
   jax_init  the very weights and BatchNorm statistics that JAX's gate
             starts its warmup from under ``seed``, read from
             ``--jax-init DIR`` (``DIR/unet_jax_init_s<seed>.pt``, written
@@ -33,31 +35,26 @@ import torch
 
 import torch_validate_semi_synthetic as gate
 
-INITS = ("torch", "flax", "jax_init")
+INITS = ("flax", "torch", "jax_init")
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def flax_default_init_(model):
-    """Redraw every conv and linear kernel of ``model`` as flax's default
-    lecun_normal draws it (a unit normal truncated at +-2, divided by its
-    standard deviation 0.8796 and scaled by 1 / sqrt(fan_in)), biases zero,
-    from torch's global generator."""
+def torch_default_init_(model):
+    """Redraw every layer of ``model`` with torch's default init (its
+    ``reset_parameters``), from torch's global generator."""
     for m in model.modules():
-        if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
-            std = m.weight[0].numel() ** -0.5 / 0.87962566103423978
-            torch.nn.init.trunc_normal_(m.weight, std=std, a=-2 * std,
-                                        b=2 * std)
-            if m.bias is not None:
-                torch.nn.init.zeros_(m.bias)
+        if m is not model and hasattr(m, "reset_parameters"):
+            m.reset_parameters()
     return model
 
 
 def initial_weights(init, seed, jax_init_dir):
     """The U-Net's initial state dict under ``init``, or None for the
-    gate's own (``run`` seeds torch with ``seed`` and builds it)."""
-    if init == "flax":
+    gate's own ("flax": ``run`` seeds torch with ``seed`` and builds it
+    through ``net_factory``, which draws it with ``jax_init_``)."""
+    if init == "torch":
         torch.manual_seed(seed)
-        return flax_default_init_(gate.net_factory(
+        return torch_default_init_(gate.net_factory(
             "unet", in_chns=1, class_num=gate.K)).state_dict()
     if init == "jax_init":
         return gate.load_jax_initial_unet(jax_init_dir, seed)
@@ -68,7 +65,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--task", default="striped", choices=gate.TASKS)
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
-    ap.add_argument("--inits", nargs="+", default=["torch", "flax"],
+    ap.add_argument("--inits", nargs="+", default=["flax", "torch"],
                     choices=INITS)
     ap.add_argument("--dtypes", nargs="+", default=["bfloat16"],
                     choices=DTYPES)

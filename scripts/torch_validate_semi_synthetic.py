@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Method-quality gate of the PyTorch port: ARCO against supervised-only
-on the 2D synthetic tasks of ``scripts/validate_semi_synthetic.py`` (the
-JAX package's gate), trained through ``arco_torch`` on one CUDA GPU.
+on the synthetic tasks of ``scripts/validate_semi_synthetic.py`` (the JAX
+package's gate), trained through ``arco_torch`` on one CUDA GPU.
 
 The protocol is the JAX script's, field for field:
 
@@ -21,6 +21,11 @@ per-term triage arms (``arco_nounsup``, ``arco_norevisit``,
 ``arco_noreco``, ``arco_unsuponly``, ``arco_confmask``): full ARCO with one
 term changed, each scored on the whole validation set.
 
+The 3D task runs the JAX script's 3D branch: a V-Net on 64x64x32 volumes
+with the 3D trainer's heads (feature maps 128, 64, 32, 16, 16 fused to 16)
+at bs 2+2, and the 3D trainer's method config (the eqv term neither in the
+loss nor computed, no photometric aug or AdvMorph, a ``randn`` bank).
+
 Tasks (see the JAX script for their design):
   shifted  intensity-coded classes under a per-image appearance shift
            (gain, offset, smooth bias field, noise); labeled images at
@@ -29,6 +34,14 @@ Tasks (see the JAX script for their design):
   striped  frequency-coded stripe textures at one random orientation an
            image; labeled images at 0 degrees, validation over [0, 90].
            Artifact ``quality_gate_striped.json``.
+  noisy3d  intensity-coded 3-D classes under voxel noise of sigma 0.26,
+           2 labeled volumes (the JAX artifact's protocol; the JAX
+           script's defaults are 0.22 and 4). Its arms are ``sup``,
+           ``arco`` (the reference formula) and ``arco_confmask`` (the
+           unsup CE confidence-masked), the gated one. Artifact
+           ``quality_gate_noisy3d_confmask.json``: the JAX script's
+           confmask schema, ``arco_dice`` the confmask arm's and the
+           reference formula's kept as ``ref_formula_arco_dice``.
 
 The artifact has the JAX artifacts' schema (``tests/test_quality_gate.py``
 reads theirs, ``tests/test_torch_quality_gate.py`` this one) with
@@ -47,6 +60,9 @@ or this script differs from the one that wrote it: use another
         --seeds 0 --warm-steps 150 --tune-steps 1500 \\
         --out docs/artifacts/quality_gate_torch
     (then --seeds 1, then --seeds 2, with the same --out)
+    python3 scripts/torch_validate_semi_synthetic.py --task noisy3d \
+        --seeds 0 --warm-steps 300 --tune-steps 1500 \
+        --out docs/artifacts/quality_gate_torch
 """
 
 from __future__ import annotations
@@ -72,16 +88,24 @@ if str(REPO) not in sys.path:
 from arco_torch import resolve_device  # noqa: E402
 from arco_torch.config import ArcoConfig, OptimConfig  # noqa: E402
 from arco_torch.kernels import launch_counts  # noqa: E402
-from arco_torch.models import net_factory  # noqa: E402
+from arco_torch.models import net_factory, net_factory_3d  # noqa: E402
 from arco_torch.train.arco2d import (init_arco_state,  # noqa: E402
                                      make_arco_modules, make_arco_step)
 
 HW, B, K = 256, 4, 3
 N_LABELED, N_UNLABELED, N_VAL = 2, 128, 32
 N_WARM, N_TUNE = 150, 450
+# the 3D task: volume, labeled and total batch, the 3D trainer's heads
+VOL, B3_L, B3 = (64, 64, 32), 2, 4
+FEATURES_3D, FUSED_3D = (128, 64, 32, 16, 16), 16
+# noisy3d's noise sigma and labeled volumes: the gate's protocol, as the
+# JAX artifact ran it (--noise3d 0.26 --labeled3d 2; that script's
+# defaults are 0.22 and 4)
+NOISE3D, LABELED3D = 0.26, 2
 # the shifted task's appearance range: gains >= 1 only, offsets +-0.10
 GAIN_LO, GAIN_HI, OFF_MAX = 1.0, 1.5, 0.10
-TASKS = ("shifted", "striped")
+TASKS = ("shifted", "striped", "noisy3d")
+ARMS_3D = ("sup", "arco", "arco_confmask")
 # SGD, nesterov momentum 0.9, weight decay 1e-4, poly 0.9 over the arm's
 # steps from LR 0.01
 OPTIM = OptimConfig(base_lr=0.01)
@@ -96,7 +120,8 @@ TERM_ARMS = {
 # the artifact's fields that runs merged into one file must share
 SHARED = ("task", "hw", "n_labeled", "n_unlabeled", "warm_steps",
           "tune_steps", "backend", "compute_dtype", "device", "torch",
-          "source_sha256", "init")
+          "source_sha256", "init", "vol", "batch", "noise_sigma",
+          "labeled_volumes")
 
 
 # ---- data: numpy on np.random.RandomState, bit-identical to the JAX
@@ -205,13 +230,51 @@ def make_task_striped(rng, n, thetas=None, hw=HW):
     return np.stack(images), np.stack(labels)
 
 
-def make_data(task, seed, hw=HW, n_unlabeled=N_UNLABELED, n_val=N_VAL):
-    """(img_l, lab_l, img_u, img_v, lab_v), images NHWC f32, labels int32:
-    labeled images at the canonical appearance, validation stratified over
-    the task's range (contiguous index ranges are its buckets)."""
+def make_task_noisy3d(rng, n, vol=VOL):
+    """Intensity-coded classes (0.35 / 0.62 / 0.88) from three 3-D gaussian
+    blobs a foreground class, plus voxel noise of sigma ``NOISE3D``:
+    levels about one sigma apart, so one voxel alone is an unreliable
+    guess."""
+    X, Y, Z = vol
+    xs = np.linspace(-1, 1, X)
+    ys = np.linspace(-1, 1, Y)
+    zz = np.linspace(-1, 1, Z)
+    gx, gy, gz = np.meshgrid(xs, ys, zz, indexing="ij")
+    levels = np.array([0.35, 0.62, 0.88], np.float32)
+    images, labels = [], []
+    for i in range(n):
+        fields = []
+        for c in range(K - 1):
+            f = np.zeros(vol, np.float32)
+            for _ in range(3):
+                cx, cy, cz = rng.uniform(-0.6, 0.6, 3)
+                s = rng.uniform(0.15, 0.35)
+                f += np.exp(-((gx - cx) ** 2 + (gy - cy) ** 2
+                              + (gz - cz) ** 2) / (2 * s * s))
+            fields.append(f)
+        stack = np.stack([0.55 * np.ones(vol, np.float32)] + fields)
+        label = stack.argmax(0).astype(np.int32)
+        image = np.clip(levels[label] + NOISE3D * rng.randn(*vol), 0.0,
+                        1.5)
+        images.append(image.astype(np.float32)[..., None])
+        labels.append(label)
+    return np.stack(images), np.stack(labels)
+
+
+def make_data(task, seed, hw=HW, n_unlabeled=N_UNLABELED, n_val=N_VAL,
+              vol=VOL):
+    """(img_l, lab_l, img_u, img_v, lab_v), images NHWC (NXYZC in 3D) f32,
+    labels int32: labeled images at the canonical appearance, validation
+    stratified over the task's range (contiguous index ranges are its
+    buckets); noisy3d draws all three sets alike."""
     if task not in TASKS:
         raise ValueError(f"task {task!r} is not one of {TASKS}")
     rng = np.random.RandomState(seed)
+    if task == "noisy3d":
+        img_l, lab_l = make_task_noisy3d(rng, LABELED3D, vol)
+        img_u, _ = make_task_noisy3d(rng, n_unlabeled, vol)
+        img_v, lab_v = make_task_noisy3d(rng, n_val, vol)
+        return img_l, lab_l, img_u, img_v, lab_v
     if task == "striped":
         img_l, lab_l = make_task_striped(rng, N_LABELED,
                                          thetas=np.zeros(N_LABELED), hw=hw)
@@ -271,25 +334,41 @@ def batch_indices(seed, n_l, n_u, b_l=B, b_u=B):
 
 
 def _nchw(images, device):
+    """Channels-last numpy images (2-D or 3-D) as a channels-first tensor
+    on ``device``."""
     return torch.from_numpy(
-        np.ascontiguousarray(images.transpose(0, 3, 1, 2))).to(device)
+        np.ascontiguousarray(np.moveaxis(images, -1, 1))).to(device)
 
 
 def run(cfg, tag, steps, data, device, warm=None, seed=0, hw=HW,
         dtype=None):
-    """``steps`` stage-2 steps of ``cfg`` from a U-Net seeded with ``seed``
-    (its weights and BatchNorm statistics replaced by ``warm``, a state
-    dict, where given; the heads, bank and pool are fresh), in ``dtype``
-    (default: ``compute_dtype(device)``). ``data``: (img_l, lab_l, img_u)
-    tensors on ``device``, NCHW. Returns the student and a record of the
-    run."""
+    """``steps`` stage-2 steps of ``cfg`` from a U-Net (a V-Net for 3-D
+    data) seeded with ``seed`` (its weights and BatchNorm statistics
+    replaced by ``warm``, a state dict, where given; the heads, bank and
+    pool are fresh), in ``dtype`` (default: ``compute_dtype(device)``).
+    ``data``: (img_l, lab_l, img_u) tensors on ``device``, NCHW (NCXYZ).
+    Returns the student and a record of the run."""
     img_l, lab_l, img_u = data
     torch.manual_seed(seed)
-    model = net_factory("unet", in_chns=1, class_num=K)
-    if warm is not None:
-        model.load_state_dict(warm)
-    modules = make_arco_modules(model, hw, hw, batch_size=B)
-    state = init_arco_state(modules, cfg, (B, 1, hw, hw), OPTIM, seed=seed,
+    if img_l.ndim == 5:
+        # the 3D trainer's modules (the JAX script's run)
+        b_l, b_u, vol = B3_L, B3 - B3_L, tuple(img_l.shape[2:])
+        model = net_factory_3d("vnet", in_chns=1, class_num=K)
+        if warm is not None:
+            model.load_state_dict(warm)
+        modules = make_arco_modules(model, vol[1], vol[0], batch_size=b_l,
+                                    total_batch=B3,
+                                    feature_channels=FEATURES_3D,
+                                    fused_dim=FUSED_3D)
+        shape = (b_l, 1) + vol
+    else:
+        b_l = b_u = B
+        model = net_factory("unet", in_chns=1, class_num=K)
+        if warm is not None:
+            model.load_state_dict(warm)
+        modules = make_arco_modules(model, hw, hw, batch_size=B)
+        shape = (B, 1, hw, hw)
+    state = init_arco_state(modules, cfg, shape, OPTIM, seed=seed,
                             device=device,
                             compute_dtype=dtype or compute_dtype(device))
     step_fn = make_arco_step(modules, cfg, num_classes=K,
@@ -298,11 +377,11 @@ def run(cfg, tag, steps, data, device, warm=None, seed=0, hw=HW,
         torch.cuda.reset_peak_memory_stats(device)
     # every step's indices in one copy: a copy a step would make the host
     # wait for the card each step
-    index = batch_indices(seed, len(img_l), len(img_u))
+    index = batch_indices(seed, len(img_l), len(img_u), b_l, b_u)
     drawn = [next(index) for _ in range(steps)]
     li_all, ui_all = (torch.from_numpy(np.array([d[i] for d in drawn],
-                                                np.int64).reshape(steps, B))
-                      .to(device) for i in (0, 1))
+                                                np.int64).reshape(steps, b))
+                      .to(device) for i, b in ((0, b_l), (1, b_u)))
     nonfinite = torch.zeros((), dtype=torch.int32, device=device)
     launches = launch_counts()
     _sync(device)
@@ -328,23 +407,25 @@ def run(cfg, tag, steps, data, device, warm=None, seed=0, hw=HW,
 
 
 def logits(model, images, device, dtype=None):
-    """Eval-mode logits [B, K, H, W] of NHWC numpy ``images`` in ``dtype``
-    (default: ``compute_dtype(device)``)."""
+    """Eval-mode logits [B, K, *spatial] of channels-last numpy ``images``
+    in ``dtype`` (default: ``compute_dtype(device)``)."""
     with torch.no_grad(), _autocast(device, dtype or compute_dtype(device)):
         return model(_nchw(images, device))[0]
 
 
 def predict(model, images, device, dtype=None):
-    """Argmax labels [N, H, W] int32 of an eval-mode forward, in chunks of
-    B, the last one padded as the JAX script pads it."""
+    """Argmax labels [N, *spatial] int32 of an eval-mode forward, in chunks
+    of B (of B3_L volumes in 3-D), the last one padded as the JAX script
+    pads it."""
     was_training = model.training
     model.eval()
     out = []
-    for i in range(0, len(images), B):
-        chunk = images[i:i + B]
+    eb = B3_L if images.ndim == 5 else B
+    for i in range(0, len(images), eb):
+        chunk = images[i:i + eb]
         n = len(chunk)
-        if n < B:
-            chunk = np.concatenate([chunk, chunk[:B - n]])
+        if n < eb:
+            chunk = np.concatenate([chunk, chunk[:eb - n]])
         labels = logits(model, chunk, device, dtype).argmax(1).to(
             torch.int32)
         out.append(labels.cpu().numpy()[:n])
@@ -373,15 +454,22 @@ def load_jax_initial_unet(init_dir, seed):
     return torch.load(os.path.join(init_dir, f"unet_jax_init_s{seed}.pt"))
 
 
-def configs(cfg_override=None):
+def configs(cfg_override=None, task=None):
     """(sup_cfg, arco_cfg): supervised-only is ArcoConfig with every
-    method term and strong augmentation off; ``cfg_override`` (a dict of
+    method term and strong augmentation off; for noisy3d the ARCO config is
+    the 3D trainer's (the eqv term neither in the loss nor computed, no
+    photometric aug or AdvMorph, a randn bank). ``cfg_override`` (a dict of
     ArcoConfig fields, for small test sizes) applies to both."""
     sup_cfg = ArcoConfig(compute_contrastive=False, compute_unsup=False,
                          compute_revisit=False, compute_eqv=False,
                          use_eqv_loss=False, use_photometric=False,
                          use_adv_morph=False)
     arco_cfg = ArcoConfig()
+    if task == "noisy3d":
+        arco_cfg = dataclasses.replace(
+            arco_cfg, use_eqv_loss=False, compute_eqv=False,
+            use_photometric=False, use_adv_morph=False,
+            memobank_init="randn")
     if cfg_override:
         sup_cfg = dataclasses.replace(sup_cfg, **cfg_override)
         arco_cfg = dataclasses.replace(arco_cfg, **cfg_override)
@@ -390,18 +478,17 @@ def configs(cfg_override=None):
 
 def run_seed(task, seed, device, arms=("sup", "arco"), n_tune=N_TUNE,
              n_warm=N_WARM, hw=HW, n_unlabeled=N_UNLABELED, n_val=N_VAL,
-             cfg_override=None, init=None):
+             cfg_override=None, init=None, vol=VOL):
     """One seed of the gate: the warmup (from the U-Net state dict
     ``init`` where given, else the one ``run`` draws), then each arm of
     ``arms`` from the warm weights. Returns the run's record."""
     device = torch.device(device)
     t_seed = time.perf_counter()
-    img_l, lab_l, img_u, img_v, lab_v = make_data(task, seed, hw=hw,
-                                                  n_unlabeled=n_unlabeled,
-                                                  n_val=n_val)
+    img_l, lab_l, img_u, img_v, lab_v = make_data(
+        task, seed, hw=hw, n_unlabeled=n_unlabeled, n_val=n_val, vol=vol)
     data = (_nchw(img_l, device), torch.from_numpy(lab_l).to(device),
             _nchw(img_u, device))
-    sup_cfg, arco_cfg = configs(cfg_override)
+    sup_cfg, arco_cfg = configs(cfg_override, task)
 
     model, rec = run(sup_cfg, f"[s{seed}] warmup", n_warm, data, device,
                      warm=init, seed=seed, hw=hw)
@@ -463,20 +550,36 @@ def summarize(runs):
         "min_gain": round(float(np.min([r["gain"] for r in runs])), 4)}
 
 
+def confmask_run(run):
+    """A noisy3d run in the JAX script's confmask schema: the confmask arm
+    plays ARCO's part, the reference formula's Dice is kept beside it, and
+    the gain is the confmask arm's over supervised-only."""
+    return {"seed": run["seed"], "warmup_dice": run["warmup_dice"],
+            "supervised_dice": run["supervised_dice"],
+            "ref_formula_arco_dice": run["arco_dice"],
+            "arco_dice": run["arco_confmask_dice"],
+            "gain": round(run["arco_confmask_dice"]
+                          - run["supervised_dice"], 4),
+            "timing": run["timing"], "seconds": run["seconds"]}
+
+
 def artifact_name(task):
-    return "quality_gate.json" if task == "shifted" \
-        else f"quality_gate_{task}.json"
+    if task == "shifted":
+        return "quality_gate.json"
+    if task == "noisy3d":
+        return "quality_gate_noisy3d_confmask.json"
+    return f"quality_gate_{task}.json"
 
 
-def read_compatible(path, results):
+def read_compatible(path, results, shared=SHARED):
     """The artifact at ``path``, or None where there is none. Refused
-    unless its protocol, card, torch and sources (``SHARED``) are those of
-    ``results``."""
+    unless its protocol, card, torch and sources (the ``shared`` keys) are
+    those of ``results``."""
     if not os.path.exists(path):
         return None
     with open(path) as f:
         old = json.load(f)
-    for key in SHARED:
+    for key in shared:
         if old.get(key) != results.get(key):
             raise SystemExit(
                 f"{path} holds runs with {key}={old.get(key)!r}, this "
@@ -484,15 +587,16 @@ def read_compatible(path, results):
     return old
 
 
-def merge(path, results):
+def merge(path, results, shared=SHARED, summarize_runs=summarize):
     """``results`` with the runs of the artifact at ``path`` whose seeds it
-    does not hold, sorted by seed, and the summary recomputed."""
+    does not hold, sorted by seed, and the summary recomputed by
+    ``summarize_runs``."""
     runs = {r["seed"]: r for r in results["runs"]}
-    old = read_compatible(path, results)
+    old = read_compatible(path, results, shared)
     for r in old["runs"] if old else ():
         runs.setdefault(r["seed"], r)
     merged = {**results, "runs": [runs[s] for s in sorted(runs)]}
-    summary = summarize(merged["runs"])
+    summary = summarize_runs(merged["runs"])
     merged.pop("summary", None)
     if summary is not None:
         merged["summary"] = summary
@@ -511,13 +615,14 @@ def device_entry(device):
     return out[device.index or 0]
 
 
-def source_sha256():
+def source_sha256(script=__file__):
     """sha256 over the port's sources (arco_torch's .py, .cu and headers)
-    and this script, by path: which code trained the runs."""
+    and ``script`` (this one by default), by path: which code trained the
+    runs."""
     h = hashlib.sha256()
     files = [p for p in sorted((REPO / "arco_torch").rglob("*"))
              if p.suffix in (".py", ".cu", ".h", ".cuh")]
-    for p in files + [Path(__file__).resolve()]:
+    for p in files + [Path(script).resolve()]:
         h.update(str(p.relative_to(REPO)).encode() + b"\0")
         h.update(p.read_bytes())
     return h.hexdigest()
@@ -540,8 +645,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--task", default="shifted", choices=TASKS)
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
-    ap.add_argument("--arms", nargs="+", default=["sup", "arco"],
-                    choices=["sup", "arco", *TERM_ARMS])
+    ap.add_argument("--arms", nargs="+", default=None,
+                    choices=["sup", "arco", *TERM_ARMS],
+                    help="default: sup arco (noisy3d: sup arco "
+                         "arco_confmask, which it needs)")
     ap.add_argument("--tune-steps", type=int, default=N_TUNE)
     ap.add_argument("--warm-steps", type=int, default=N_WARM)
     ap.add_argument("--out", default=None,
@@ -557,6 +664,13 @@ def main(argv=None):
                     help="the commit recorded in the artifact (default: "
                          "git describe --always --dirty of the checkout)")
     args = ap.parse_args(argv)
+    is3d = args.task == "noisy3d"
+    arms = tuple(args.arms or (ARMS_3D if is3d else ("sup", "arco")))
+    if is3d and not set(ARMS_3D) <= set(arms):
+        raise SystemExit(f"noisy3d writes the confmask artifact: --arms "
+                         f"must hold {' '.join(ARMS_3D)}")
+    if is3d and args.init_dir:
+        raise SystemExit("--init-dir holds U-Nets: noisy3d runs a V-Net")
 
     device = resolve_device(args.device)
     # f32 work outside autocast stays f32 (the port's CLIs' setting)
@@ -571,6 +685,11 @@ def main(argv=None):
                "source_sha256": source_sha256(), "runs": []}
     if args.init_dir:
         results["init"] = "jax"
+    if is3d:
+        # the JAX script's noisy3d fields
+        results.update(task="noisy3d_confmask", n_labeled=LABELED3D,
+                       vol=list(VOL), batch=[B3_L, B3 - B3_L],
+                       noise_sigma=NOISE3D, labeled_volumes=LABELED3D)
     print(f"{results['device']}; torch {results['torch']}; "
           f"{results['compute_dtype']}", flush=True)
     path = os.path.join(args.out, artifact_name(args.task)) \
@@ -580,10 +699,10 @@ def main(argv=None):
     for s in args.seeds:
         init = load_jax_initial_unet(args.init_dir, s) \
             if args.init_dir else None
-        results["runs"].append(run_seed(args.task, s, device,
-                                        arms=tuple(args.arms),
-                                        n_tune=args.tune_steps,
-                                        n_warm=args.warm_steps, init=init))
+        run = run_seed(args.task, s, device, arms=arms,
+                       n_tune=args.tune_steps, n_warm=args.warm_steps,
+                       init=init)
+        results["runs"].append(confmask_run(run) if is3d else run)
         if path:
             os.makedirs(args.out, exist_ok=True)
             merged = merge(path, results)

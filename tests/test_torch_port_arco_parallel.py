@@ -27,10 +27,11 @@ this process runs JAX's sharded step (one compile).
 - (iv) ``parallel.dryrun``'s rank on a 2x2 ("data", "space") mesh: a
   finite loss, step 1, the spatial leg within 1e-5 of the unsharded
   forward away from the depth edges.
-- (v) One 3D step (V-Net with dropout, 5-column mix boxes, 32x32x16,
-  2 + 2 a rank) at 2 ranks against one process, as (i); and one 2D step
-  with ClassMix, the 'asmc' sampler, the dead forward, histogram
-  percentiles and remat.
+- (v) One 3D step (V-Net with dropout, 5-column mix boxes, 2 + 2 a rank)
+  at 2 ranks against one process, as (i): at 32x32x16 in float64 and at
+  64x64x16 in f32 (tests/torch_port_arco_ranks.py's CASES3D says why);
+  and one 2D step with ClassMix, the 'asmc' sampler, the dead forward,
+  histogram percentiles and remat.
 """
 
 import os
@@ -375,7 +376,7 @@ def test_dryrun_on_a_2x2_mesh(runs):
     assert len(losses) == 1
 
 
-@pytest.mark.parametrize("case", ["3d", "flags"])
+@pytest.mark.parametrize("case", [*ranks.CASES3D, "flags"])
 def test_step_matches_single_process(runs, case):
     want = runs["single"][case]
     assert want[0][0]["unsup_loss"] > 0 and want[0][0]["reco_loss"] > 0

@@ -1,26 +1,37 @@
-"""The port's method-quality gate script against the JAX package's.
+"""The port's method-quality gate scripts against the JAX package's.
 
 ``scripts/torch_validate_semi_synthetic.py`` (the port's) is held against
 ``scripts/validate_semi_synthetic.py`` (JAX's, the oracle), both imported
 by path:
-- the data of both tasks bit for bit (``np.array_equal``, same dtype) at
-  the JAX script's sizes, seeds 0 and 1;
+- the data of both 2D tasks bit for bit (``np.array_equal``, same dtype)
+  at the JAX script's sizes, seeds 0 and 1; noisy3d's at the gate's
+  protocol (sigma 0.26, 2 labeled volumes), seed 0;
 - ``dice`` exactly, on seeded pairs and with a class absent;
-- every arm's config, step count and seed field for field, the optimizer's
-  settings, and the batch-index stream of ``run`` for 5 steps;
+- every arm's config, step count and seed field for field (2D and
+  noisy3d), the optimizer's settings, and the batch-index stream of
+  ``run`` for 5 steps (2D and 3D);
 - ``evaluate`` at 32x32 from one set of U-Net weights carried from flax
   (``compat/from_flax.py``), both in f32 on the CPU: logits within atol
   1e-4, the same per-image Dice and the same mean;
-- one ``run_seed`` of each task on the CPU at 32x32 (2 warm and 2 tune
-  steps, small banks and pool): the artifact keys, every Dice in [0, 1];
+- one ``run_seed`` of each task on the CPU at 32x32 (noisy3d at
+  16x16x16; 2 warm and 2 tune steps, small banks and pool): the artifact
+  keys, every Dice in [0, 1], finite losses; noisy3d's confmask record;
 - the script imports neither JAX nor the JAX package (``ast``).
+
+``scripts/torch_validate_natural.py`` against ``scripts/validate_natural.py``
+with ``--mechanism striped``: the fixture's JPEGs and PNGs byte for byte,
+the two CLIs' argv of every arm (module paths aside), one seed through the
+port's CLIs on the CPU at 2 iterations an arm, and no JAX import.
 """
 
 import ast
 import dataclasses
+import filecmp
 import importlib.util
 import inspect
 import json
+import os
+import sys
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -60,6 +71,10 @@ JAX_GATE = _load("jax_validate_semi_synthetic",
                  "scripts/validate_semi_synthetic.py")
 GATE = _load("torch_validate_semi_synthetic",
              "scripts/torch_validate_semi_synthetic.py")
+JAX_NATURAL = _load("jax_validate_natural", "scripts/validate_natural.py")
+# the natural script imports the gate script by name, from scripts/
+sys.path.insert(0, str(ROOT / "scripts"))
+NATURAL = _load("torch_validate_natural", "scripts/torch_validate_natural.py")
 
 
 @pytest.mark.parametrize("task", ["shifted", "striped"])
@@ -73,10 +88,36 @@ def test_make_data_is_bit_identical(task, seed):
         assert np.array_equal(g, w)
 
 
+def test_noisy3d_data_is_bit_identical(monkeypatch):
+    """At the gate's protocol (the JAX artifact's noise_sigma 0.26 and
+    labeled_volumes 2): JAX's script reads them from its globals."""
+    monkeypatch.setattr(JAX_GATE, "NOISE3D", 0.26)
+    monkeypatch.setattr(JAX_GATE, "LABELED3D", 2)
+    want = JAX_GATE.make_data("noisy3d", 0)
+    got = GATE.make_data("noisy3d", 0)
+    assert [g.shape for g in got] == [(2, 64, 64, 32, 1), (2, 64, 64, 32),
+                                      (128, 64, 64, 32, 1),
+                                      (32, 64, 64, 32, 1), (32, 64, 64, 32)]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert np.array_equal(g, w)
+
+
 def test_constants_match():
     for name in ("HW", "B", "K", "N_LABELED", "N_UNLABELED", "N_VAL",
-                 "N_WARM", "N_TUNE", "GAIN_LO", "GAIN_HI", "OFF_MAX"):
+                 "N_WARM", "N_TUNE", "GAIN_LO", "GAIN_HI", "OFF_MAX", "VOL",
+                 "B3_L", "B3"):
         assert getattr(GATE, name) == getattr(JAX_GATE, name), name
+    # noisy3d's noise and labeled volumes: the JAX artifact's protocol (its
+    # script's defaults differ; the artifact's run set them by flag)
+    with open(ROOT / "docs/artifacts/quality_gate/"
+              "quality_gate_noisy3d_confmask.json") as f:
+        jax3d = json.load(f)
+    assert (GATE.NOISE3D, GATE.LABELED3D) == \
+        (jax3d["noise_sigma"], jax3d["labeled_volumes"])
+    for name in ("HW", "K_CLS", "N_TRAIN", "N_VAL", "LABEL_NUM", "ITERS",
+                 "WARM_ITERS", "MODEL", "SMALL", "SUP_OFF"):
+        assert getattr(NATURAL, name) == getattr(JAX_NATURAL, name), name
 
 
 def test_resize_bicubic_is_jax_image_resize():
@@ -109,9 +150,10 @@ def _cfg_fields(cfg):
     return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
 
 
-def _arm_calls(monkeypatch):
-    """Each script's run_seed over every arm, with ``run`` recording (tag,
-    config, steps, seed) and the data and evaluation stubbed."""
+def _arm_calls(monkeypatch, task="shifted"):
+    """Each script's run_seed of ``task`` over every arm, with ``run``
+    recording (tag, config, steps, seed) and the data and evaluation
+    stubbed."""
     tiny = (np.zeros((2, 4, 4, 1), np.float32), np.zeros((2, 4, 4), np.int32),
             np.zeros((4, 4, 4, 1), np.float32),
             np.zeros((4, 4, 4, 1), np.float32), np.zeros((4, 4, 4), np.int32))
@@ -131,19 +173,21 @@ def _arm_calls(monkeypatch):
         monkeypatch.setattr(mod, "run", run)
         monkeypatch.setattr(mod, "evaluate", lambda *a, **k: 0.5)
         monkeypatch.setattr(mod, "evaluate_buckets", lambda *a, **k: [0.5])
-    JAX_GATE.run_seed("shifted", 7, jnp.float32, arms=ALL_ARMS, n_tune=11,
+    JAX_GATE.run_seed(task, 7, jnp.float32, arms=ALL_ARMS, n_tune=11,
                       n_warm=5)
-    GATE.run_seed("shifted", 7, "cpu", arms=ALL_ARMS, n_tune=11, n_warm=5)
+    GATE.run_seed(task, 7, "cpu", arms=ALL_ARMS, n_tune=11, n_warm=5)
     return calls
 
 
-def test_configs_steps_and_seeds_match(monkeypatch):
+@pytest.mark.parametrize("task", ["shifted", "noisy3d"])
+def test_configs_steps_and_seeds_match(monkeypatch, task):
     """Warmup, both arms and the five triage arms: the same ArcoConfig on
     every field (the two dataclasses have the same fields), the same step
-    count and seed, in the same order."""
+    count and seed, in the same order; noisy3d's ARCO arms with the 3D
+    trainer's method config."""
     jax_fields = {f.name for f in dataclasses.fields(JaxArcoConfig)}
     assert {f.name for f in dataclasses.fields(ArcoConfig)} == jax_fields
-    calls = _arm_calls(monkeypatch)
+    calls = _arm_calls(monkeypatch, task)
     assert len(calls["port"]) == len(calls["jax"]) == 8
     for (tag_p, cfg_p, steps_p, seed_p), (tag_j, cfg_j, steps_j, seed_j) in \
             zip(calls["port"], calls["jax"]):
@@ -151,6 +195,9 @@ def test_configs_steps_and_seeds_match(monkeypatch):
         assert cfg_p == cfg_j, tag_p
         assert (steps_p, seed_p) == (steps_j, seed_j), tag_p
     assert [c[2:] for c in calls["port"][:3]] == [(5, 7), (11, 8), (11, 8)]
+    arco = calls["port"][2][1]
+    assert (arco["memobank_init"], arco["compute_eqv"]) == \
+        (("randn", False) if task == "noisy3d" else ("zeros", True))
 
 
 def test_optimizer_matches_make_optimizer():
@@ -165,13 +212,15 @@ def test_optimizer_matches_make_optimizer():
     assert o.poly_power == want["power"].default
 
 
-def test_batch_index_stream_matches(monkeypatch):
+@pytest.mark.parametrize("nd", [2, 3])
+def test_batch_index_stream_matches(monkeypatch, nd):
     """The first 5 batches of ``run``: images that carry their own index,
-    through each script's real loop with the model and step stubbed."""
+    through each script's real loop with the model and step stubbed (3-D
+    images take the 3D branch, bs 2 + 2)."""
     n_l, n_u, steps, seed = 2, 128, 5, 3
-    img_l = np.arange(n_l, dtype=np.float32).reshape(n_l, 1, 1, 1)
-    img_u = np.arange(n_u, dtype=np.float32).reshape(n_u, 1, 1, 1)
-    lab_l = np.zeros((n_l, 1, 1), np.int32)
+    img_l = np.arange(n_l, dtype=np.float32).reshape((n_l,) + (1,) * (nd + 1))
+    img_u = np.arange(n_u, dtype=np.float32).reshape((n_u,) + (1,) * (nd + 1))
+    lab_l = np.zeros((n_l,) + (1,) * nd, np.int32)
     seen = {"jax": [], "port": []}
 
     def record(key, batch):
@@ -198,14 +247,16 @@ def test_batch_index_stream_matches(monkeypatch):
     monkeypatch.setattr(GATE, "init_arco_state",
                         lambda *a, **k: SimpleNamespace(model=None))
     monkeypatch.setattr(GATE, "make_arco_step", lambda *a, **k: port_step)
-    data = tuple(torch.from_numpy(np.ascontiguousarray(
-        x.transpose(0, 3, 1, 2)) if x.ndim == 4 else x)
-        for x in (img_l, lab_l, img_u))
+    nchw = lambda x: torch.from_numpy(np.ascontiguousarray(
+        np.moveaxis(x, -1, 1)))
+    data = (nchw(img_l), torch.from_numpy(lab_l), nchw(img_u))
     GATE.run(None, "t", steps, data, torch.device("cpu"), seed=seed, hw=1)
 
     assert len(seen["jax"]) == steps
     assert seen["port"] == seen["jax"]
-    index = GATE.batch_indices(seed, n_l, n_u)
+    b = (GATE.B3_L, GATE.B3 - GATE.B3_L) if nd == 3 else (GATE.B, GATE.B)
+    assert [len(i) for i in seen["port"][0]] == list(b)
+    index = GATE.batch_indices(seed, n_l, n_u, *b)
     assert [tuple(a.tolist() for a in next(index))
             for _ in range(steps)] == seen["jax"]
 
@@ -251,6 +302,39 @@ def test_evaluate_matches_jax():
     assert 0 < np.mean(want_dice) < 1
     assert GATE.evaluate(model, img_v, lab_v, device) == \
         JAX_GATE.evaluate(jmodel, params, stats, img_v, lab_v)
+
+
+def test_noisy3d_run_seed_on_the_cpu():
+    """The 3D branch through the V-Net at 16x16x16, its three arms 2 steps
+    each: finite losses, no kernel launch on the CPU, and the confmask
+    record the artifact holds (``confmask_run``)."""
+    out = GATE.run_seed("noisy3d", 0, "cpu", arms=GATE.ARMS_3D, n_tune=2,
+                        n_warm=2, n_unlabeled=4, n_val=4, cfg_override=SMALL,
+                        vol=(16, 16, 16))
+    run = GATE.confmask_run(out)
+    assert run["arco_dice"] == out["arco_confmask_dice"]
+    assert run["ref_formula_arco_dice"] == out["arco_dice"]
+    assert run["gain"] == round(out["arco_confmask_dice"]
+                                - out["supervised_dice"], 4)
+    assert all(0.0 <= run[k] <= 1.0 for k in
+               ("warmup_dice", "supervised_dice", "arco_dice",
+                "ref_formula_arco_dice"))
+    assert set(run["timing"]) == {"warmup", "supervised", "arco",
+                                  "arco_confmask"}
+    for rec in run["timing"].values():
+        assert rec["steps"] == 2 and rec["nonfinite_losses"] == 0
+        assert np.isfinite(rec["final_loss"])
+        assert not any(rec["launches"].values())
+    summary = GATE.summarize([run, {**run, "seed": 1}])
+    assert summary["min_gain"] == run["gain"]
+    assert GATE.artifact_name("noisy3d") == \
+        "quality_gate_noisy3d_confmask.json"
+
+
+def test_noisy3d_needs_the_confmask_arm():
+    with pytest.raises(SystemExit, match="arco_confmask"):
+        GATE.main(["--task", "noisy3d", "--arms", "sup", "arco",
+                   "--device", "cpu"])
 
 
 @pytest.mark.parametrize("task", ["shifted", "striped"])
@@ -325,8 +409,10 @@ def test_the_script_refuses_a_missing_gpu():
         GATE.main(["--seeds", "0", "--warm-steps", "1", "--tune-steps", "1"])
 
 
-def test_the_script_imports_nothing_of_jax():
-    path = ROOT / "scripts" / "torch_validate_semi_synthetic.py"
+@pytest.mark.parametrize("script", ["torch_validate_semi_synthetic.py",
+                                    "torch_validate_natural.py"])
+def test_the_script_imports_nothing_of_jax(script):
+    path = ROOT / "scripts" / script
     bad = []
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
         names = []
@@ -336,3 +422,88 @@ def test_the_script_imports_nothing_of_jax():
             names = [node.module]
         bad += [n for n in names if n.split(".")[0] in FORBIDDEN]
     assert not bad, bad
+
+
+# ---- the natural-image gate
+
+def test_natural_fixture_is_byte_identical(tmp_path, monkeypatch):
+    """Every JPEG (q95) and PNG and both split lists, seed 3."""
+    monkeypatch.setattr(JAX_NATURAL, "MECHANISM", "striped")
+    JAX_NATURAL.make_fixture(str(tmp_path / "jax"), 3)
+    NATURAL.make_fixture(str(tmp_path / "port"), 3)
+    files = sorted(str(p.relative_to(tmp_path / "jax"))
+                   for p in (tmp_path / "jax").rglob("*") if p.is_file())
+    assert len(files) == 2 * (NATURAL.N_TRAIN + NATURAL.N_VAL) + 2
+    assert files == sorted(str(p.relative_to(tmp_path / "port"))
+                           for p in (tmp_path / "port").rglob("*")
+                           if p.is_file())
+    match, mismatch, errors = filecmp.cmpfiles(
+        tmp_path / "jax", tmp_path / "port", files, shallow=False)
+    assert not mismatch and not errors and len(match) == len(files)
+
+
+def test_natural_argv_of_every_arm(monkeypatch):
+    """The warmup, sup and arco arms' train_arco_natural argv and the two
+    eval_natural argv, each script's run_arm with both CLIs stubbed."""
+    import arco_tpu.cli.eval_natural as jax_eval
+    import arco_tpu.cli.train_arco_natural as jax_train
+    seen = {"jax": [], "port": []}
+    result = {"miou": 0.5, "per_class_iou": [0.5] * 4}
+
+    def train(key):
+        def main(argv, wrap_step=None):     # the port's main takes a wrapper
+            seen[key].append(("train", list(argv)))
+            a = dict(zip(argv[::2], argv[1::2]))
+            return os.path.join(a["--snapshot_dir"],
+                                f"{a['--exp']}_{a['--label_num']}_labeled",
+                                a["--model"])
+        return main
+
+    def evaluate(key):
+        def main(argv):
+            seen[key].append(("eval", list(argv)))
+            print(json.dumps(result))
+            return result
+        return main
+
+    monkeypatch.setattr(jax_train, "main", train("jax"))
+    monkeypatch.setattr(jax_eval, "main", evaluate("jax"))
+    monkeypatch.setattr(NATURAL.train_arco_natural, "main", train("port"))
+    monkeypatch.setattr(NATURAL.eval_natural, "main", evaluate("port"))
+    for run_arm, key in ((JAX_NATURAL.run_arm, "jax"),
+                         (lambda *a, **k: NATURAL.run_arm(
+                             *a, device="cpu", **k)[0], "port")):
+        warm = run_arm("/r", "/s", "warm", 2)
+        assert warm == "/s/gate/warm_s2_2_labeled/unet"
+        for arm in ("sup", "arco"):
+            assert run_arm("/r", "/s", arm, 2, warm_snapshot=warm) == result
+    assert len(seen["port"]) == 5
+    assert seen["port"] == seen["jax"]
+
+
+def test_natural_seed_on_the_cpu(tmp_path):
+    """One seed through the port's CLIs at 2 iterations an arm (the
+    warmup too): finite losses, mIoUs in [0, 1], the JAX artifact's run
+    keys and each arm's record."""
+    run = NATURAL.run_seed(0, str(tmp_path), "cpu", iters=2, warm_iters=2,
+                           extra=["--device", "cpu"])
+    assert {"seed", "supervised_miou", "arco_miou", "gain", "sup_per_class",
+            "arco_per_class"} <= set(run)
+    assert all(0.0 <= run[k] <= 1.0 for k in ("supervised_miou",
+                                              "arco_miou"))
+    assert len(run["arco_per_class"]) == NATURAL.K_CLS
+    assert abs(run["gain"] - (run["arco_miou"] - run["supervised_miou"])) \
+        < 2e-4
+    for arm in ("warmup", "supervised", "arco"):
+        rec = run["timing"][arm]
+        assert rec["iters"] == 2 and rec["nonfinite_losses"] == 0
+        assert rec["ms_per_step"] > 0
+        assert not any(rec["launches"].values())
+    assert NATURAL.summarize([run])["min_gain"] == run["gain"]
+
+
+def test_natural_script_refuses_a_missing_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        NATURAL.main(["--seeds", "0", "--iters", "1", "--warm-iters", "1"])

@@ -11,8 +11,10 @@ port's state dict ``DIR/unet_jax_init_s<seed>.pt``. The port trains from
 them on the card: ``scripts/torch_gate_init_probe.py --inits jax_init
 --jax-init DIR`` (the warmup alone) and
 ``scripts/torch_validate_semi_synthetic.py --init-dir DIR`` (whole seeds
-of the gate). Prints one JSON line a seed: the warmup's Dice and bucket
-Dice.
+of the gate). The port's own U-Net draws the same distributions
+(``arco_torch/models/init.py``) from torch's generator, so only these
+files give it JAX's very weights. Prints one JSON line a seed: the
+warmup's Dice and bucket Dice.
 
     python3 tests/torch_gate_warmup_parity.py --task striped \\
         --seeds 0 1 2 3 4 5 6 7 [--save-init build/gate_init]

@@ -13,6 +13,7 @@ the test. Every rank builds its inputs itself from seeds (spawn's
 arguments go through a pipe that a large array would hold up).
 """
 
+import contextlib
 import datetime
 import os
 
@@ -62,9 +63,17 @@ JCFG = dict(K=8, num_queries=16, num_negatives=8, memobank_size=128,
             strong_threshold=0.3, weak_threshold=0.3,
             use_photometric=False, use_adv_morph=False)
 
-# the 3D case: tests/test_torch_port_3d_step.py's flags at 2 + 2 a rank
-# (a pool of 4 rows: its capacity takes whole global batches)
-B3, S3, NC3 = 4, (32, 32, 16), 2
+# the 3D cases: tests/test_torch_port_3d_step.py's flags at 2 + 2 a rank
+# (a pool of 4 rows: its capacity takes whole global batches), as (volume,
+# dtype). At 32x32x16 the V-Net's bottleneck BatchNorm normalizes 16 values
+# a channel; in f32 the mesh's sums, taken in another order, then moved the
+# state by up to 3.7e-5 after the step, and one predicted label of 65536
+# flipped. In float64 the same step agrees to 1.3e-8 (the softmaxes stay
+# f32, as JAX's do) with no flip, so that case runs in float64, and the f32
+# route is held at 64x64x16 (64 values a channel).
+CASES3D = {"3d": ((32, 32, 16), torch.float64),
+           "3d_f32": ((64, 64, 16), torch.float32)}
+B3, NC3 = 4, 2
 FEA3, FUSED3 = (128, 64, 32, 16, 16), 16
 CFG3 = dict(K=4, num_queries=16, num_negatives=8, memobank_size=128,
             memobank_size_bg=128, memobank_enqueue=32, topk=2,
@@ -85,12 +94,12 @@ def batch2d(seed, b=B, hw=HW, nc=NC):
             "image_u": image.clone()}
 
 
-def batch3d(seed):
+def batch3d(seed, s3, dtype):
     rs = np.random.RandomState(seed)
-    label = rs.randint(0, NC3, size=(2 * B3,) + S3).astype(np.int64)
+    label = rs.randint(0, NC3, size=(2 * B3,) + s3).astype(np.int64)
     image = torch.from_numpy(label[:, None].astype(np.float32)
-                             + 0.2 * rs.randn(2 * B3, 1, *S3)
-                             .astype(np.float32))
+                             + 0.2 * rs.randn(2 * B3, 1, *s3)
+                             .astype(np.float32)).to(dtype)
     return {"image_l": image[:B3], "label_l": torch.from_numpy(label[:B3]),
             "image_u": image[B3:].contiguous()}
 
@@ -99,13 +108,15 @@ def build(kind):
     """(modules, state, cfg, num classes) of one case, from seeds: the
     same on every rank and in the single process."""
     torch.manual_seed(0)
-    if kind == "3d":
+    dtype = torch.float32
+    if kind in CASES3D:
+        s3, dtype = CASES3D[kind]
         cfg = ArcoConfig(**CFG3)
         model = net_factory_3d("vnet", in_chns=1, class_num=NC3)
-        mods = arco2d.make_arco_modules(model, S3[1], S3[0], batch_size=B3,
+        mods = arco2d.make_arco_modules(model, s3[1], s3[0], batch_size=B3,
                                         feature_channels=FEA3,
                                         fused_dim=FUSED3)
-        shape, nc = (B3, 1) + S3, NC3
+        shape, nc = (B3, 1) + s3, NC3
     elif kind == "jax":
         cfg = ArcoConfig(**JCFG)
         model = UNet(in_chns=1, class_num=JNC, dropout=(0.0,) * 5)
@@ -119,9 +130,19 @@ def build(kind):
         mods = arco2d.make_arco_modules(model, HW, HW, batch_size=b)
         shape = (b, 1, HW, HW)
     state = arco2d.init_arco_state(mods, cfg, shape, OPTIM, seed=0,
-                                   device="cpu", compute_dtype=torch.float32,
-                                   pool_dtype=torch.float32)
+                                   device="cpu", compute_dtype=dtype,
+                                   pool_dtype=dtype)
     return mods, state, cfg, nc
+
+
+@contextlib.contextmanager
+def default_dtype(dtype):
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(dtype)
+    try:
+        yield
+    finally:
+        torch.set_default_dtype(old)
 
 
 def snapshot(state):
@@ -148,15 +169,22 @@ def run_case(kind, mesh=None, steps=1, start=None, draws=None):
     ``mesh``, over this rank's shard of it: (the metrics of each step, the
     last step's predicted labels, the state after). ``start``: a JAX
     state (tests/test_torch_port_step.py's ``_flax_state_numpy``) to load
-    first; ``draws``: the draws of the first step."""
+    first; ``draws``: the draws of the first step. A float64 case builds
+    and steps under that default dtype."""
+    dtype = CASES3D.get(kind, (None, torch.float32))[1]
+    with default_dtype(dtype):
+        return _run_case(kind, mesh, steps, start, draws)
+
+
+def _run_case(kind, mesh, steps, start, draws):
     mods, state, cfg, nc = build(kind)
     if start is not None:
         load_flax_arco_state(state, start)
     step = arco2d.make_arco_step(mods, cfg, num_classes=nc,
                                  max_iterations=100, optim=OPTIM,
                                  device="cpu", mesh=mesh)
-    if kind == "3d":
-        batches = [batch3d(0)]
+    if kind in CASES3D:
+        batches = [batch3d(0, *CASES3D[kind])]
     elif kind == "jax":
         batches = [jax_batch()]
     elif kind == "2d":
@@ -191,7 +219,7 @@ def jax_batch():
 
 # the single-process runs: which process of the spawn runs them, once it
 # is outside the 2-rank group
-SINGLE = {2: (("traj", TRAJ_STEPS), ("3d", 1)),
+SINGLE = {2: (("traj", TRAJ_STEPS), ("3d", 1), ("3d_f32", 1)),
           3: (("2d", 1), ("jax", 1), ("flags", 1))}
 
 
@@ -233,6 +261,7 @@ def run_world(world, jax_inputs):
     start, draws = torch.load(jax_inputs, weights_only=False)
     res["jax"] = run_case("jax", mesh, start=start, draws=draws)
     res["trajectory"] = run_case("traj", mesh, steps=TRAJ_STEPS)
-    res["3d"] = run_case("3d", mesh)
+    for kind in CASES3D:
+        res[kind] = run_case(kind, mesh)
     res["flags"] = run_case("flags", mesh)
     return res
